@@ -3,8 +3,10 @@
 `neg_log_marginal_likelihood` is the mean NLL over the non-aligned
 sub-datasets through the Cholesky path, tagged `_packed_spec =
 ('nll', None)` so that GP.train routes it through the packed trainer
-(models/packed.py). The EKL/EUC divergences and the objective combinators
-wait (ROADMAP Queue A).
+(models/packed.py). With config['fused_mll'] = True each large enough
+sub-dataset of a served kernel goes through the fused route
+(ops/fused_mll: kernels K2-K4). The EKL/EUC divergences, the objective
+combinators and config['iterative_mll'] wait (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import math
 import torch
 
 from hyperbo_tpu_torch.core.warp import retrieve_params
+from hyperbo_tpu_torch.ops import fused_mll
 from hyperbo_tpu_torch.ops import linalg
 
 
@@ -38,17 +41,23 @@ def neg_log_marginal_likelihood(mean_func,
   """Mean negative log marginal likelihood over (non-aligned) sub-datasets.
 
   Only the Cholesky evaluation is ported; use_cholesky=False (the SVD
-  path) and the opt-in fused and iterative routes raise.
+  path) and the opt-in iterative route raise. config['fused_mll'] = True
+  sends every sub-dataset the fused route serves (se_nll_fused_applicable)
+  through kernels K2-K4, differentiably.
   """
   if not use_cholesky:
     raise NotImplementedError('the SVD evaluation of the NLL is not '
                               'ported yet: see ROADMAP Queue A')
-  if params.config and (params.config.get('fused_mll') or
-                        params.config.get('iterative_mll')):
-    raise NotImplementedError("config['fused_mll'] / ['iterative_mll'] are "
-                              'not ported yet: see ROADMAP Queue A')
+  if params.config and params.config.get('iterative_mll'):
+    raise NotImplementedError("config['iterative_mll'] is not ported yet: "
+                              'see ROADMAP Queue A')
+  fused = fused_mll.fused_requested(params)
 
   def nll_one(vx, vy):
+    if fused and fused_mll.se_nll_fused_applicable(cov_func, vx, params,
+                                                   y=vy):
+      return fused_mll.se_nll_fused(mean_func, params, vx, vy,
+                                    warp_func=warp_func, cov_func=cov_func)
     chol, kinvy, vy = linalg.solve_gp_linear_system(
         mean_func=mean_func, cov_func=cov_func, params=params, x=vx, y=vy,
         warp_func=warp_func)

@@ -7,6 +7,10 @@ batched factorization. Padded rows of K are replaced by identity rows and
 padded entries of y by 0, so the padding adds nothing to the log-det or
 the quadratic term, and the n/2 log(2 pi) term uses the true count.
 
+With config['fused_mll'] = True and a served kernel at n_max >= 512, each
+task goes through the fused large-n route instead (ops/fused_mll, kernels
+K2-K4), one task after another.
+
 The aligned/EKL half (pack_aligned_dataset, the KL variants,
 subsample_aligned_packed) and the window sampler wait (ROADMAP Queue A).
 """
@@ -22,6 +26,7 @@ from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.ops import batch_chol
 from hyperbo_tpu_torch.ops import chol as chol_ops
+from hyperbo_tpu_torch.ops import fused_mll
 
 SubDataset = defs.SubDataset
 
@@ -112,6 +117,28 @@ def nll_one_task(mean_func, cov_func, params, x, y, mask, count,
   return quad + logdet_half + 0.5 * count * _LOG_2PI
 
 
+def _nll_packed_fused(mean_func, cov_func, params, packed, warp_func, eps):
+  """Per-task NLL through the fused route, one task after another (the JAX
+  package's lax.map). Padded rows leave each task exactly
+  (se_nll_fused_masked); gradients flow through the fused core's
+  backward."""
+  lengthscale, signal_variance, noise_variance = retrieve_params(
+      params, ['lengthscale', 'signal_variance', 'noise_variance'],
+      warp_func=warp_func)
+  kfam = fused_mll.kernel_family(cov_func)
+  sv = torch.squeeze(torch.as_tensor(signal_variance))
+  da = torch.squeeze(torch.as_tensor(noise_variance)) + eps
+  out = []
+  for x, y, mask, count in zip(packed.x, packed.y, packed.mask,
+                               packed.count):
+    mu = mean_func(params, x, warp_func=warp_func)
+    delta = (y - torch.atleast_2d(mu)) * mask[:, None]
+    emb = fused_mll._se_embed(params, x, cov_func, warp_func)
+    out.append(fused_mll.se_nll_fused_masked(emb / lengthscale, delta, sv,
+                                             da, count, kfam=kfam))
+  return torch.stack(out)
+
+
 def _batched_chol_route(params, packed) -> bool:
   """Whether the batched small-n kernel (K1) evaluates the packed NLL.
 
@@ -148,14 +175,13 @@ def per_task_nll_packed(mean_func,
                         packed: PackedDataset,
                         warp_func=None,
                         eps: float = 1e-6) -> torch.Tensor:
-  """(T,) per-task NLLs of a packed batch (route-selected, unmasked).
-
-  The fused large-n kernel route (config['fused_mll']) waits for kernels
-  K2-K4 (ROADMAP Queue B) and raises.
-  """
-  if params.config and params.config.get('fused_mll'):
-    raise NotImplementedError("config['fused_mll'] needs kernels K2-K4, "
-                              'not ported yet: see ROADMAP Queue A')
+  """(T,) per-task NLLs of a packed batch (route-selected, unmasked): the
+  fused large-n route when configured and applicable, the batched small-n
+  kernel (K1) in its regime, else the dense factorization."""
+  if (fused_mll.fused_requested(params) and
+      fused_mll.se_nll_fused_applicable(cov_func, packed.x[0], params)):
+    return _nll_packed_fused(mean_func, cov_func, params, packed,
+                             warp_func, eps)
   if _batched_chol_route(params, packed):
     return _nll_packed_batched(mean_func, cov_func, params, packed,
                                warp_func, eps)

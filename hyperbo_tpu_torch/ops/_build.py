@@ -3,15 +3,18 @@
 Each `.cu` file under hyperbo_tpu_torch/csrc/ exports plain C functions.
 At first use it is compiled by `nvcc` for Hopper (sm_90a) into a shared
 library and loaded with ctypes. The library goes to build/hyperbo_tpu_torch/
-at the root of the checkout, under a name keyed by a hash of the source and
-the compiler flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is. Nothing here runs at import time: the CPU-only test
-environment has no nvcc and imports every module.
+at the root of the checkout, under a name keyed by a hash of the source, the
+shared headers (csrc/*.cuh) and the compiler flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is. `build_all` compiles
+several sources at once, one nvcc process each. Nothing here runs at import
+time: the CPU-only test environment has no nvcc and imports every module.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -19,6 +22,8 @@ import subprocess
 import tempfile
 import time
 from typing import Optional, Sequence
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, 'csrc')
@@ -67,8 +72,11 @@ class CudaKernel:
     return os.path.join(CSRC_DIR, self.source)
 
   def library_path(self) -> str:
-    with open(self.source_path, 'rb') as f:
-      digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in [self.source_path,
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, '*.cuh')))]:
+      with open(path, 'rb') as f:
+        digest.update(f.read())
     stem = os.path.splitext(self.source)[0]
     return os.path.join(BUILD_DIR, f'lib{stem}_{digest.hexdigest()[:16]}.so')
 
@@ -105,3 +113,24 @@ class CudaKernel:
       raise RuntimeError(f'{self.symbol} failed to launch: CUDA error '
                          f'{err}')
     self.launches += 1
+
+
+def check_cuda_f32(name: str, **tensors):
+  """Raise unless every tensor given (None skipped) is a contiguous float32
+  CUDA tensor: what a kernel entry point takes."""
+  for key, t in tensors.items():
+    if t is None:
+      continue
+    if t.device.type != 'cuda':
+      raise ValueError(f'{name} needs CUDA tensors, got {key} on {t.device}')
+    if t.dtype != torch.float32:
+      raise TypeError(f'{name} needs float32, got {key} of {t.dtype}')
+    if not t.is_contiguous():
+      raise ValueError(f'{name} needs contiguous tensors, {key} is not')
+
+
+def build_all(kernels: Sequence[CudaKernel]):
+  """Build the kernels concurrently (each nvcc runs in its own process)."""
+  with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+    for future in [pool.submit(k.build) for k in kernels]:
+      future.result()

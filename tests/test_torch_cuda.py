@@ -9,7 +9,11 @@ Without a card every test here skips. Tolerances: B = L^{-T} within atol
 1e-5 of the float64 plain version (a float32 sweep of at most 128 steps);
 the NLL terms' value within rtol 1e-6 and gradients within atol 1e-5; a
 training step's loss within rtol 1e-4 of the CPU's (float32 sums in
-another order on another device).
+another order on another device). The fused large-n kernels K2-K4 against
+their float64 plain versions: L within atol 5e-4 (tests/test_pallas_chol.py),
+quad and logdet within rtol 1e-4 (tests/test_objectives.py:313), T, P and
+the two backward scalars within 5e-3 of their largest entry (bench.py:540,
+the gradient parity bound).
 """
 
 import numpy as np
@@ -21,6 +25,9 @@ from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
 from hyperbo_tpu_torch.models import gp, kernel, mean
 from hyperbo_tpu_torch.ops import batch_chol
+from hyperbo_tpu_torch.ops import fused_mll
+from hyperbo_tpu_torch.ops import mll_bwd
+from hyperbo_tpu_torch.ops import tri_inv
 
 
 @pytest.fixture
@@ -116,4 +123,124 @@ def test_training_runs_through_the_kernel(cuda_device):
     model.train(callback=lambda s, m, l: losses.append(float(l)))
     traces.append(losses)
   assert batch_chol.KERNEL.launches - before == 6
+  np.testing.assert_allclose(traces[1], traces[0], rtol=1e-4)
+
+
+def _fused_inputs(seed, n, d, n_valid, device, dtype):
+  """x (n, d), y (n, 1), sv, da and the valid mask (None when all rows
+  are valid), with padded rows zero."""
+  rng = np.random.default_rng(seed)
+  x = np.zeros((n, d))
+  y = np.zeros((n, 1))
+  x[:n_valid] = rng.uniform(size=(n_valid, d)) * 2.0
+  y[:n_valid] = rng.normal(size=(n_valid, 1))
+  opts = dict(dtype=dtype, device=device)
+  valid = None
+  if n_valid < n:
+    valid = torch.tensor((np.arange(n) < n_valid).astype(np.float64), **opts)
+  return (torch.tensor(x, **opts), torch.tensor(y, **opts),
+          torch.tensor(1.3, **opts), torch.tensor(0.11, **opts), valid)
+
+
+def _max_rel(got, want):
+  return float((got.double().cpu() - want.double().cpu()).abs().max() /
+               want.double().abs().max().cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,d,n_valid,kfam', [(512, 4, 512, 'se'),
+                                              (704, 3, 700, 'matern32')])
+def test_fused_kernels_match_plain(cuda_device, n, d, n_valid, kfam):
+  """K2, K3 and K4 against their float64 plain versions; K3 and K4 each on
+  the float32 rounding of the plain version's input."""
+  x, y, sv, da, v = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                  torch.float32)
+  x64, y64, sv64, da64, v64 = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                            torch.float64)
+  counts = [k.KERNEL.launches for k in (fused_mll, tri_inv, mll_bwd)]
+  chol, quad, ld = fused_mll.mll_fused(x, y, sv, da, kfam, v)
+  chol64, quad64, ld64 = fused_mll.mll_fused_plain(x64, y64, sv64, da64,
+                                                   kfam, v64)
+  np.testing.assert_allclose(chol.cpu().numpy(), chol64.cpu().numpy(),
+                             atol=5e-4)
+  np.testing.assert_allclose(float(quad), float(quad64), rtol=1e-4)
+  np.testing.assert_allclose(float(ld), float(ld64), rtol=1e-4)
+  l_in = chol64.float().contiguous()
+  t = tri_inv.tri_inv(l_in)
+  t64 = tri_inv.tri_inv_plain(l_in.double())
+  assert _max_rel(t, t64) <= 5e-3
+  t_in = t64.float().contiguous()
+  alpha = tri_inv.alpha_from_inverse(t64, y64).float().contiguous()
+  p, dsv, dda = mll_bwd.mll_bwd_fused(t_in, x, alpha, sv, kfam, v)
+  p64, dsv64, dda64 = mll_bwd.mll_bwd_plain(t_in.double(), x64,
+                                            alpha.double(), sv64, kfam, v64)
+  assert _max_rel(p, p64) <= 5e-3
+  np.testing.assert_allclose(float(dsv), float(dsv64), rtol=5e-3)
+  np.testing.assert_allclose(float(dda), float(dda64), rtol=5e-3)
+  torch.cuda.synchronize()
+  assert [k.KERNEL.launches for k in (fused_mll, tri_inv, mll_bwd)] == [
+      c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+def test_fused_core_gives_nan_for_non_pd(cuda_device):
+  x, y, sv, _, _ = _fused_inputs(6, 512, 4, 512, cuda_device, torch.float32)
+  args = [x.requires_grad_(True), y.requires_grad_(True),
+          sv.requires_grad_(True),
+          torch.tensor(-0.5, device=cuda_device, requires_grad=True)]
+  val = fused_mll.fused_nll_core(*args)
+  assert bool(torch.isnan(val))
+  for g in torch.autograd.grad(val, args):
+    assert bool((torch.isnan(g) | (g == 0)).all())
+
+
+@pytest.mark.cuda
+def test_fused_wrappers_reject_what_they_do_not_take(cuda_device):
+  x, y, sv, da, _ = _fused_inputs(7, 128, 2, 128, cuda_device,
+                                  torch.float32)
+  eye = torch.eye(128, device=cuda_device)
+  cases = [
+      (fused_mll.launch_mll_fused, (x.double(), y, sv, da), TypeError),
+      (fused_mll.launch_mll_fused, (x.cpu(), y, sv, da), ValueError),
+      (fused_mll.launch_mll_fused, (x.T.contiguous().T, y, sv, da),
+       ValueError),
+      (tri_inv.launch_tri_inv, (eye.double(),), TypeError),
+      (tri_inv.launch_tri_inv, (eye.cpu(),), ValueError),
+      (tri_inv.launch_tri_inv, (eye.t(),), ValueError),
+      (mll_bwd.launch_mll_bwd, (eye.double(), x, y, sv), TypeError),
+      (mll_bwd.launch_mll_bwd, (eye.cpu(), x, y, sv), ValueError),
+      (mll_bwd.launch_mll_bwd, (eye.t(), x, y, sv), ValueError),
+  ]
+  for fn, args, err in cases:
+    with pytest.raises(err):
+      fn(*args)
+
+
+@pytest.mark.cuda
+def test_fused_training_runs_through_the_kernels(cuda_device):
+  """GP.train with config['fused_mll'] on the card launches K2, K3 and K4
+  once per task per step, and its loss trace matches the CPU's."""
+  steps = 3
+  rng = np.random.default_rng(8)
+  data = {i: (rng.uniform(size=(n, 3)).astype(np.float32),
+              rng.normal(size=(n, 1)).astype(np.float32))
+          for i, n in enumerate((600, 530))}
+  traces = []
+  for device in ('cpu', cuda_device):
+    model = gp.GP(data, mean.constant, kernel.squared_exponential,
+                  defs.GPParams(
+                      model={'constant': 0., 'lengthscale': 0.,
+                             'signal_variance': 0., 'noise_variance': -2.},
+                      config={'method': 'adam', 'learning_rate': 1e-2,
+                              'max_training_step': steps,
+                              'batch_size': 1024, 'objective': 'nll',
+                              'fused_mll': True, 'checkpoint_every': 1}),
+                  DEFAULT_WARP_FUNC, device=device)
+    model.initialize_params(torch.Generator().manual_seed(0))
+    before = [k.KERNEL.launches for k in (fused_mll, tri_inv, mll_bwd)]
+    losses = []
+    model.train(callback=lambda s, m, l: losses.append(float(l)))
+    traces.append(losses)
+  after = [k.KERNEL.launches for k in (fused_mll, tri_inv, mll_bwd)]
+  assert [a - b for a, b in zip(after, before)] == [steps * 2] * 3
   np.testing.assert_allclose(traces[1], traces[0], rtol=1e-4)
