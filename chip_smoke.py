@@ -30,7 +30,24 @@ exits non-zero and the final ok line is never printed:
      through the kernels against the dense route in float64 (value rtol
      1e-4, max rel 5e-3 per gradient leaf), and one value and gradient at
      n = 16384, finite, with its time;
-  8. one JSON line with the kernels' numbers, then the ok line.
+  8. K7 and K6 (the dense Cholesky kernels) against their float64 plain
+     versions on the card (atol 5e-4): K7 at n = 1, 37, 128, 300, 512 and a
+     (23, 100, 100) batch, K6 at n = 1024, 2048, 4096 and a batch of two;
+     NaN for a non-PD matrix; the time of each, its plain version and
+     torch.linalg.cholesky at the shapes of phase 9;
+  9. the EKL slice at PD1 width: one nll_regkl(1.) step's loss on the card
+     against the CPU (same parameters and injected subsample, rtol 1e-4);
+     GP.train() with nll_regkl(1.) on the 23 tasks plus one aligned
+     sub-dataset of 1024 shared inputs x 23 draws (50 Adam steps at batch
+     100: K1 on the NLL half, dense autograd Cholesky on the EKL half);
+     then GP.stats() on the full data three times: routes off (cuSOLVER),
+     set_use_hbm_kernel (K6 on the aligned (1, 1024, 1024) factors), and
+     set_use_recursive + set_use_pallas_base (K7 on the 512 base blocks);
+     the routes agree with cuSOLVER (NLL, partial EKL, EUC rtol 1e-4; full
+     EKL rtol 1e-3: its whitened covariance amplifies float32 rounding);
+  10. one JSON line with the kernels' numbers (each with its bound from the
+     bytes and operations of its inputs, and the time of one PyTorch call
+     computing the same function where there is one), then the ok line.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -61,6 +78,16 @@ L_ATOL = 5e-4          # tests/test_pallas_chol.py, the TPU kernel's bound
 VALUE_RTOL = 1e-4      # tests/test_objectives.py:313
 GRAD_MAX_REL = 5e-3    # bench.py:540, the gradient parity bound
 FUSED_TIMED_RUNS = 6   # x 2 turns = 12 timings of each
+
+# The EKL slice and the dense Cholesky kernels (phases 8-9).
+ALIGNED_POINTS = 1024  # the least n of K6's route; the recursion's 512 blocks
+DENSE_TIMED_RUNS = 10  # x 2 turns = 20 timings of each
+FULL_EKL_RTOL = 1e-3
+
+# The card's peak rates that bound a kernel (NVIDIA's H100 SXM data sheet,
+# at 700 W): float32 outside the tensor cores, and device memory.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -159,36 +186,35 @@ def phase_k1(batch_chol, dev):
 
   kb = torch.from_numpy(spd_batch(rng, TASKS, BATCH)).to(dev)
   kb = 0.5 * (kb + kb.transpose(-1, -2))
-  for _ in range(5):
-    batch_chol.launch_linv_t(kb)
-    batch_chol.linv_t_plain(kb)
-  torch.cuda.synchronize()
-  plain, kern = [], []
-  for order in ('plain', 'kernel', 'kernel', 'plain'):
-    if order == 'plain':
-      plain += median_ms(lambda: batch_chol.linv_t_plain(kb), TIMED_RUNS)
-    else:
-      kern += median_ms(lambda: batch_chol.launch_linv_t(kb), TIMED_RUNS)
-  ms, plain_ms = statistics.median(kern), statistics.median(plain)
-  log(f'K1 time at (T={TASKS}, n={BATCH}): kernel {ms:.4f} ms, '
-      f'plain {plain_ms:.4f} ms (median of {2 * TIMED_RUNS} each)')
-  return worst, ms, plain_ms
+  ms = _turns(TIMED_RUNS, plain=lambda: batch_chol.linv_t_plain(kb),
+              kernel=lambda: batch_chol.launch_linv_t(kb))
+  log(f'K1 time at (T={TASKS}, n={BATCH}): kernel {ms["kernel"]:.4f} ms, '
+      f'plain {ms["plain"]:.4f} ms (median of {2 * TIMED_RUNS} each)')
+  return worst, ms
 
 
 def make_data(seed=0):
   """23 tasks of y = sin(3 x @ w) + 0.1 noise (bench.py's synthetic PD1
-  shape), plus a 24th task of candidates for BO."""
+  shape), a 24th task of candidates for BO, and one aligned sub-dataset:
+  ALIGNED_POINTS shared inputs with one draw of each training task's
+  function a column, (x, y, tag)."""
   rng = np.random.default_rng(seed)
   dataset = {}
+  ws = []
   for i in range(TASKS):
     x = rng.uniform(size=(POINTS, DIM))
     w = rng.normal(size=(DIM, 1))
     y = np.sin(3 * x @ w) + 0.1 * rng.normal(size=(POINTS, 1))
     dataset[f'workload{i}'] = (x.astype(np.float32), y.astype(np.float32))
+    ws.append(w)
   cx = rng.uniform(size=(CANDIDATES, DIM))
   w = rng.normal(size=(DIM, 1))
   cy = np.sin(3 * cx @ w) + 0.1 * rng.normal(size=(CANDIDATES, 1))
-  return dataset, (cx.astype(np.float32), cy.astype(np.float32))
+  ax = rng.uniform(size=(ALIGNED_POINTS, DIM))
+  ay = (np.sin(3 * ax @ np.concatenate(ws, axis=1)) +
+        0.1 * rng.normal(size=(ALIGNED_POINTS, TASKS)))
+  return (dataset, (cx.astype(np.float32), cy.astype(np.float32)),
+          (ax.astype(np.float32), ay.astype(np.float32), 'aligned'))
 
 
 def init_params(steps):
@@ -295,18 +321,16 @@ def _rel(a, b):
   return float((a - b).abs().max() / b.abs().max())
 
 
-def _turns(kernel_fn, plain_fn, runs):
-  """Median ms of both, timed in turns plain, kernel, kernel, plain."""
-  kernel_fn()
-  plain_fn()
+def _turns(runs, **fns):
+  """Median ms of each function, timed in turns: in the order given, then
+  in reverse (plain, kernel, kernel, plain for two), `runs` each turn."""
+  for fn in fns.values():
+    fn()
   torch.cuda.synchronize()
-  plain, kern = [], []
-  for order in ('plain', 'kernel', 'kernel', 'plain'):
-    if order == 'plain':
-      plain += median_ms(plain_fn, runs)
-    else:
-      kern += median_ms(kernel_fn, runs)
-  return statistics.median(kern), statistics.median(plain)
+  times = {name: [] for name in fns}
+  for name in list(fns) + list(reversed(fns)):
+    times[name] += median_ms(fns[name], runs)
+  return {name: statistics.median(t) for name, t in times.items()}
 
 
 def fused_case(dev, n, d, kfam, count=None, sv=1.3, da=0.11, seed=0):
@@ -405,26 +429,30 @@ def phase_fused_kernels(dev):
   log('K2-K4 non-PD input (da = -0.5): NaN value, NaN gradients')
 
   b = big
+  # One library call computes K3's function: the n-RHS triangular solve.
+  eye = torch.eye(b['l'].shape[0], device=dev)
   times = {
       'fused_mll': _turns(
-          lambda: fused_mll.launch_mll_fused(b['x'], b['y'], b['sv'],
-                                             b['da'], b['kfam']),
-          lambda: fused_mll.mll_fused_plain(b['x'], b['y'], b['sv'],
-                                            b['da'], b['kfam']),
-          FUSED_TIMED_RUNS),
-      'tri_inv': _turns(lambda: tri_inv.launch_tri_inv(b['l']),
-                        lambda: tri_inv.tri_inv_plain(b['l']),
-                        FUSED_TIMED_RUNS),
+          FUSED_TIMED_RUNS,
+          plain=lambda: fused_mll.mll_fused_plain(b['x'], b['y'], b['sv'],
+                                                  b['da'], b['kfam']),
+          kernel=lambda: fused_mll.launch_mll_fused(b['x'], b['y'], b['sv'],
+                                                    b['da'], b['kfam'])),
+      'tri_inv': _turns(
+          FUSED_TIMED_RUNS, plain=lambda: tri_inv.tri_inv_plain(b['l']),
+          kernel=lambda: tri_inv.launch_tri_inv(b['l']),
+          library=lambda: torch.linalg.solve_triangular(b['l'], eye,
+                                                        upper=False)),
       'mll_bwd': _turns(
-          lambda: mll_bwd.launch_mll_bwd(b['t'], b['x'], b['alpha'],
-                                         b['sv'], b['kfam']),
-          lambda: mll_bwd.mll_bwd_plain(b['t'], b['x'], b['alpha'],
-                                        b['sv'], b['kfam']),
-          FUSED_TIMED_RUNS),
+          FUSED_TIMED_RUNS,
+          plain=lambda: mll_bwd.mll_bwd_plain(b['t'], b['x'], b['alpha'],
+                                              b['sv'], b['kfam']),
+          kernel=lambda: mll_bwd.launch_mll_bwd(b['t'], b['x'], b['alpha'],
+                                                b['sv'], b['kfam'])),
   }
-  for name, (ms, plain_ms) in times.items():
-    log(f'{name} time at n=8192 (median of {4 * FUSED_TIMED_RUNS // 2} '
-        f'each): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms')
+  for name, ms in times.items():
+    log(f'{name} time at n=8192 (median of {2 * FUSED_TIMED_RUNS} each): ' +
+        ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items()))
   return worst, times
 
 
@@ -545,21 +573,252 @@ def phase_fused_objective(dev, card):
   return ms
 
 
+def bound(flops, nbytes):
+  """(bound_ms, bound_by): the least time the card could take for `flops`
+  float32 operations on `nbytes` bytes read and written once."""
+  ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+  bytes_ms = nbytes / PEAK_BYTES * 1e3
+  return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
+                                                               'bytes')
+
+
+def phase_dense_kernels(dev):
+  """Phase 8: K7 and K6 against float64, NaN on non-PD, timing."""
+  from hyperbo_tpu_torch.ops import chol_hbm, chol_panel
+  rng = np.random.default_rng(7)
+  worst = {'chol_panel': 0.0, 'chol_hbm': 0.0}
+  cases = [('chol_panel', 1, n) for n in (1, 37, 128, 300, 512)]
+  cases += [('chol_panel', TASKS, BATCH)]
+  cases += [('chol_hbm', 1, n) for n in (1024, 2048, 4096)]
+  cases += [('chol_hbm', 2, 1024)]
+  launch = {'chol_panel': chol_panel.launch_chol_panel,
+            'chol_hbm': chol_hbm.launch_chol_hbm}
+  plain = {'chol_panel': chol_panel.cholesky_panel_plain,
+           'chol_hbm': chol_hbm.cholesky_hbm_plain}
+  for name, t, n in cases:
+    a = torch.from_numpy(spd_batch(rng, t, n)).to(dev)
+    got = launch[name](a)
+    want = plain[name](a.double())
+    err = float((got.double() - want).abs().max())
+    log(f'{name} ({t}, {n}, {n}): max abs err vs float64 plain {err:.3e}')
+    if not err <= L_ATOL:
+      raise AssertionError(f'{name} error {err} > {L_ATOL} at ({t}, {n})')
+    worst[name] = max(worst[name], err)
+  for name, n in (('chol_panel', 300), ('chol_hbm', 1024)):
+    bad = spd_batch(rng, 2, n)
+    bad[1, -1, -1] = -5.0
+    got = launch[name](torch.from_numpy(bad).to(dev))
+    torch.cuda.synchronize()
+    if not (bool(torch.isfinite(got[0]).all()) and
+            bool(torch.isnan(got[1]).all())):
+      raise AssertionError(f'{name} must give NaN for the non-PD matrix only')
+    log(f'{name} non-PD input: NaN for that matrix only')
+
+  times = {}
+  for name, n in (('chol_panel', 512), ('chol_hbm', ALIGNED_POINTS)):
+    a = torch.from_numpy(spd_batch(rng, 1, n)).to(dev)
+    a = 0.5 * (a + a.transpose(-1, -2))
+    times[name] = _turns(DENSE_TIMED_RUNS, plain=lambda: plain[name](a),
+                         kernel=lambda: launch[name](a),
+                         library=lambda: torch.linalg.cholesky(a))
+    ms = times[name]
+    log(f'{name} time at (1, {n}, {n}) (median of {2 * DENSE_TIMED_RUNS} '
+        f'each): kernel {ms["kernel"]:.4f} ms, plain {ms["plain"]:.4f} ms, '
+        f'torch.linalg.cholesky {ms["library"]:.4f} ms')
+  return worst, times
+
+
+def ekl_params(steps):
+  params = init_params(steps)
+  params.config['objective'] = 'nll_regkl1'
+  return params
+
+
+def phase_ekl_step_parity(dataset, dev):
+  """One nll_regkl(1.) step's loss on the card and on the CPU, from the same
+  parameters and the same injected subsample of both halves."""
+  from hyperbo_tpu_torch.core import convert
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.models import packed as packed_lib
+
+  model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                ekl_params(1), DEFAULT_WARP_FUNC, device='cpu')
+  model.initialize_params(torch.Generator().manual_seed(1))
+  rng = np.random.default_rng(3)
+  sel = torch.from_numpy(np.stack(
+      [rng.permutation(POINTS)[:BATCH] for _ in range(TASKS)]))
+  sel_al = torch.from_numpy(rng.permutation(ALIGNED_POINTS)[:BATCH][None])
+  losses = []
+  for device in ('cpu', dev):
+    loss_fn, (pnll, pekl), _ = gp._build_packed_training(
+        model.params.config['objective'], model.dataset, model.params.config,
+        mean.linear_mlp, kernel.squared_exponential_mlp, DEFAULT_WARP_FUNC,
+        device)
+    batch = (packed_lib.take_rows(pnll, sel.to(device)),
+             packed_lib.take_aligned_rows(pekl, sel_al.to(device)))
+    losses.append(float(loss_fn(
+        convert.model_to(model.params.model, device), batch)))
+  rel = abs(losses[1] - losses[0]) / abs(losses[0])
+  log(f'first nll_regkl step loss: card {losses[1]:.6f}, cpu '
+      f'{losses[0]:.6f}, rel diff {rel:.3e}')
+  if not rel <= STEP_LOSS_RTOL:
+    raise AssertionError(f'card/cpu nll_regkl loss differ by {rel}')
+
+
+def _stats_values(model):
+  nll, ekl, ekl_partial, euc, _ = model.stats(verbose=False)
+  return {'nll': float(nll), 'ekl': float(ekl),
+          'ekl_partial': float(ekl_partial), 'euc': float(euc)}
+
+
+def phase_ekl(dataset, dev, card, kernels):
+  """Phase 9: nll_regkl training at PD1 width, then GP.stats() through
+  cuSOLVER, K6 and the recursion with K7. Returns the launches of each
+  kernel in this path's run."""
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.ops import chol as chol_ops
+
+  params = ekl_params(STEPS)
+  params.config['checkpoint_every'] = 1
+  model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                params, DEFAULT_WARP_FUNC, device=dev)
+  model.initialize_params(torch.Generator(device=dev).manual_seed(0))
+  losses, marks = [], {}
+
+  def on_step(step, _, loss):
+    losses.append(loss)
+    if step in (1, STEPS):
+      torch.cuda.synchronize()
+      marks[step] = time.perf_counter()
+
+  for k in kernels.values():
+    k.launches = 0
+  model.train(callback=on_step)
+  trace = torch.stack(losses).cpu().numpy()
+  step_ms = (marks[STEPS] - marks[1]) * 1e3 / (STEPS - 1)
+  log(f'nll_regkl training loss: first {trace[0]:.4f}, last {trace[-1]:.4f} '
+      f'over {len(trace)} steps; {step_ms:.3f} ms/step [{card}]')
+  if len(trace) != STEPS or not np.isfinite(trace).all():
+    raise AssertionError(f'nll_regkl loss trace not finite or short: {trace}')
+  if not trace[-10:].mean() < trace[:10].mean():
+    raise AssertionError('nll_regkl training loss did not decrease')
+  if kernels['batched_linv_t'].launches < STEPS:
+    raise AssertionError('K1 did not run every nll_regkl training step')
+
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  nll, _ = model.neg_log_marginal_likelihood()
+  float(nll)
+  log(f'SVD NLL over {TASKS} x {POINTS}: '
+      f'{(time.perf_counter() - t0) * 1e3:.3f} ms [{card}]')
+  routes = {'cusolver': (),
+            'chol_hbm': (chol_ops.set_use_hbm_kernel,),
+            'chol_panel': (chol_ops.set_use_recursive,
+                           chol_ops.set_use_pallas_base)}
+  results = {}
+  for route, setters in routes.items():
+    before = {name: k.launches for name, k in kernels.items()}
+    try:
+      for setter in setters:
+        setter(True)
+      _stats_values(model)  # warm-up
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      values = _stats_values(model)
+      stats_ms = (time.perf_counter() - t0) * 1e3
+      t0 = time.perf_counter()
+      with torch.no_grad():
+        float(model.empirical_divergence_packed(partial=False) +
+              model.empirical_divergence_packed(partial=True))
+      ekl_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+      for setter in setters:
+        setter(False)
+    used = {name: k.launches - before[name] for name, k in kernels.items()
+            if name in ('chol_hbm', 'chol_panel')}
+    results[route] = values
+    log(f'GP.stats() via {route}: ' +
+        ', '.join(f'{k} {v:.6f}' for k, v in values.items()) +
+        f'; {stats_ms:.3f} ms per stats(), {ekl_ms:.3f} ms for the two '
+        f'packed EKLs; launches {used} [{card}]')
+    if not all(np.isfinite(v) for v in values.values()):
+      raise AssertionError(f'GP.stats() via {route} is not finite: {values}')
+    if route != 'cusolver' and used[route] == 0:
+      raise AssertionError(f'GP.stats() via {route} did not launch it')
+  launches = {name: k.launches for name, k in kernels.items()}
+  want = results['cusolver']
+  for route in ('chol_hbm', 'chol_panel'):
+    rel = {k: abs(v - want[k]) / abs(want[k])
+           for k, v in results[route].items()}
+    log(f'{route} route vs cuSOLVER, rel diff: ' +
+        ', '.join(f'{k} {v:.3e}' for k, v in rel.items()))
+    bounds = dict(nll=STEP_LOSS_RTOL, ekl=FULL_EKL_RTOL,
+                  ekl_partial=STEP_LOSS_RTOL, euc=STEP_LOSS_RTOL)
+    for key, b in bounds.items():
+      if not rel[key] <= b:
+        raise AssertionError(f'{route} {key} differs by {rel[key]} > {b}')
+  return launches
+
+
 def main():
   # The port first: without the repo's sources there is nothing to run.
-  from hyperbo_tpu_torch.ops import batch_chol, fused_mll, mll_bwd, tri_inv
+  from hyperbo_tpu_torch.ops import (batch_chol, chol_hbm, chol_panel,
+                                     fused_mll, mll_bwd, tri_inv)
   card = phase_device()
   dev = torch.device('cuda', 0)
   fused_kernels = {'fused_mll': fused_mll.KERNEL, 'tri_inv': tri_inv.KERNEL,
                    'mll_bwd': mll_bwd.KERNEL}
-  phase_build([batch_chol.KERNEL, *fused_kernels.values()])
-  err, ms, plain_ms = phase_k1(batch_chol, dev)
-  dataset, candidates = make_data()
+  dense_kernels = {'chol_panel': chol_panel.KERNEL,
+                   'chol_hbm': chol_hbm.KERNEL}
+  phase_build([batch_chol.KERNEL, *fused_kernels.values(),
+               *dense_kernels.values()])
+  err, k1_times = phase_k1(batch_chol, dev)
+  dataset, candidates, aligned = make_data()
   phase_step_parity(dataset, dev)
   launches = phase_slice(dataset, candidates, batch_chol, dev, card)
   worst, times = phase_fused_kernels(dev)
   fused_launches = phase_fused_train(dev, card, fused_kernels)
   phase_fused_objective(dev, card)
+  dense_worst, dense_times = phase_dense_kernels(dev)
+  ekl_data = dict(dataset, aligned=aligned)
+  phase_ekl_step_parity(ekl_data, dev)
+  ekl_launches = phase_ekl(ekl_data, dev, card,
+                           {'batched_linv_t': batch_chol.KERNEL,
+                            **dense_kernels})
+
+  # Work of each kernel at the shapes timed above: minimal float32
+  # operations, and bytes of its inputs read and outputs written once.
+  n, d, t, b = 8192, FUSED_DIM, TASKS, BATCH
+  work = {
+      # Cholesky and triangular inverse, 2 n^3 / 3 a task; K in, B out.
+      'batched_linv_t': (t * 2 * b**3 / 3, 8 * t * b * b),
+      # Gram n^2 (d + 1), Cholesky n^3 / 3, forward solve n^2; x, y in,
+      # L and z out.
+      'fused_mll': (n**3 / 3 + n * n * (d + 2), 4 * (n * d + 2 * n + n * n)),
+      # L^{-1}: n^3 / 3; L in, T out.
+      'tri_inv': (n**3 / 3, 8 * n * n),
+      # T^T T on the lower half n^3 / 3, G, W and P = [W x | W 1]
+      # 2 n^2 (d + 1); T, x, alpha in, P out.
+      'mll_bwd': (n**3 / 3 + 2 * n * n * (d + 1),
+                  4 * (n * n + n * d + n + n * (d + 1))),
+      # Cholesky n^3 / 3 of one matrix; A in, L out.
+      'chol_panel': (512**3 / 3, 8 * 512 * 512),
+      'chol_hbm': (ALIGNED_POINTS**3 / 3, 8 * ALIGNED_POINTS**2),
+  }
+  # The float32 matmul rate the card reaches, beside the data sheet's.
+  x = torch.randn((n, n), device=dev)
+  matmul_tflops = 2 * n**3 / statistics.median(
+      median_ms(lambda: x @ x, 10)) / 1e9
+  log(f'float32 matmul (TF32 off) at {n}: {matmul_tflops:.2f} TFLOP/s '
+      f'measured, {PEAK_FP32_FLOPS / 1e12:.0f} on the data sheet [{card}]')
+  for name, (flops, nbytes) in work.items():
+    ms_dsheet, by = bound(flops, nbytes)
+    ms_meas = max(flops / matmul_tflops / 1e9, nbytes / PEAK_BYTES * 1e3)
+    log(f'{name} bound: {ms_dsheet:.5f} ms by {by} ({ms_meas:.5f} ms at the '
+        'measured matmul rate)')
+  del x
   rows = [{
       'name': 'batched_linv_t',
       'route': 'cuda',
@@ -567,8 +826,9 @@ def main():
       'replaces': 'hyperbo_tpu/ops/pallas_batch_chol.py:131',
       'launches': launches,
       'max_abs_err': err,
-      'ms': ms,
-      'plain_ms': plain_ms,
+      'ms': k1_times['kernel'],
+      'plain_ms': k1_times['plain'],
+      'library_ms': None,
   }]
   replaces = {'fused_mll': 'hyperbo_tpu/ops/pallas_mll.py:922',
               'tri_inv': 'hyperbo_tpu/ops/pallas_triinv.py:543',
@@ -581,9 +841,26 @@ def main():
         'replaces': replaces[name],
         'launches': fused_launches[name],
         'max_abs_err': worst[name],
-        'ms': times[name][0],
-        'plain_ms': times[name][1],
+        'ms': times[name]['kernel'],
+        'plain_ms': times[name]['plain'],
+        'library_ms': times[name].get('library'),
     })
+  replaces = {'chol_panel': 'hyperbo_tpu/ops/pallas_chol.py:121',
+              'chol_hbm': 'hyperbo_tpu/ops/pallas_chol_hbm.py:825'}
+  for name, k in dense_kernels.items():
+    rows.append({
+        'name': name,
+        'route': 'cuda',
+        'source': f'hyperbo_tpu_torch/csrc/{k.source}',
+        'replaces': replaces[name],
+        'launches': ekl_launches[name],
+        'max_abs_err': dense_worst[name],
+        'ms': dense_times[name]['kernel'],
+        'plain_ms': dense_times[name]['plain'],
+        'library_ms': dense_times[name]['library'],
+    })
+  for row in rows:
+    row['bound_ms'], row['bound_by'] = bound(*work[row['name']])
   print(json.dumps({'kernels': rows}), flush=True)
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

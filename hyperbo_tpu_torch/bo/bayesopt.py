@@ -147,9 +147,10 @@ def run_bayesopt(
     get_params_path: Optional[Callable[..., Any]] = None,
     callback: Optional[Callable[..., Any]] = None,
     save_retrain_model: bool = False,
-    device: Union[str, torch.device] = 'cpu',
+    device: Union[str, torch.device] = 'cuda',
 ):
-  """BO experiment entry point: build the GP on `device`, optionally
+  """BO experiment entry point: build the GP on `device` (the CUDA card
+  unless the caller passes 'cpu'), optionally
   initialize and pre-train it, then run BO over the candidate set.
 
   `init_random_key` is a torch.Generator on `device`; it draws the

@@ -1,5 +1,6 @@
 // Device code shared by the fused-NLL kernels (fused_mll.cu, tri_inv.cu,
-// mll_bwd.cu): the 64 x 64 tile geometry, the squared-distance tile and the
+// mll_bwd.cu) and the blocked Cholesky (chol_core.cuh, chol_hbm.cu): the
+// 64 x 64 tile geometry, the squared-distance tile and the
 // kernel-family transforms of hyperbo_tpu/ops/pallas_mll.py
 // (_gram_transform) and hyperbo_tpu/ops/pallas_mll_bwd.py (_km_nm).
 //

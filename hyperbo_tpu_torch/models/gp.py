@@ -1,16 +1,19 @@
-"""(Multi-task) Gaussian process model: training and prediction (port of
-hyperbo_tpu/models/gp.py).
+"""(Multi-task) Gaussian process model: training, evaluation and
+prediction (port of hyperbo_tpu/models/gp.py).
 
-Ported: `infer_parameters` with method 'adam' on the packed route,
-`sample_from_gp`, the functional `predict`, and the `GP` class
-(initialize_params, train, setup_predictor with the bucket-padded
-incremental Cholesky cache, update_sub_dataset, predict). `HGP`, `stats`,
-the L-BFGS/BFGS/slice-sampling trainers and the mesh routes wait
-(ROADMAP Queue A) and raise where a caller could reach them.
+Ported: `infer_parameters` with method 'adam' on the packed route (NLL,
+EKL, and NLL + c EKL objectives), `sample_from_gp`, the functional
+`predict`, and the `GP` class (initialize_params, train, the model
+evaluation `stats` with its SVD NLL and EKL/EUC divergences,
+setup_predictor with the bucket-padded incremental Cholesky cache,
+update_sub_dataset, predict). `HGP`, the L-BFGS/BFGS/slice-sampling
+trainers, the host-loop trainer and the mesh routes wait (ROADMAP Queue A)
+and raise where a caller could reach them.
 
-Every GP lives on one explicit device (`device=`); its data, parameters
-and random generator are kept there. A CUDA device on a machine without
-CUDA raises.
+Every GP lives on one device (`device=`, the CUDA card unless the caller
+asks for the CPU); its data, parameters and random generator are kept
+there. A CUDA device on a machine without CUDA raises: nothing falls back
+to the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from hyperbo_tpu_torch.core import convert
 from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.models import basis as bf
+from hyperbo_tpu_torch.models import divergences
 from hyperbo_tpu_torch.models import objectives as obj
 from hyperbo_tpu_torch.models import packed as packed_lib
 from hyperbo_tpu_torch.ops import chol as chol_ops
@@ -45,41 +49,73 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
   device = torch.device(device)
   if device.type == 'cuda' and not torch.cuda.is_available():
     raise RuntimeError(f'device {device} requested but CUDA is not '
-                       'available')
+                       'available (pass device="cpu" to run on the CPU)')
   return device
 
 
 def _build_packed_training(objective, dataset, config, mean_func,
                            cov_func, warp_func, device):
-  """(loss_fn, data, subsample_fn) of the packed multi-task NLL trainer.
+  """(loss_fn, data, subsample_fn) of the packed trainer.
 
-  Only the plain NLL objective over single-output, non-aligned
-  sub-datasets is ported; other objectives and shapes raise.
+  The objectives tagged with `_packed_spec` are served: the plain NLL, the
+  plain partial-KL EKL and NLL + c EKL. `data` is the pair (NLL pack, EKL
+  pack), either None when its half is not needed. What the JAX package
+  sends to its host-loop trainer instead (other objectives, multi-output
+  NLL data, an EKL objective without aligned data, pack_tasks False)
+  raises.
   """
   if not config.get('pack_tasks', True):
     raise _not_ported("config['pack_tasks'] = False (the host-loop trainer)")
   spec = getattr(objective, '_packed_spec', None)
-  if spec != ('nll', None):
-    raise _not_ported(f'training objective {objective!r}')
+  if spec is None:
+    raise _not_ported(f'training objective {objective!r} (the host-loop '
+                      'trainer)')
+  kind, weight = spec
+  need_nll = kind in ('nll', 'nll_regkl')
+  need_kl = kind in ('kl', 'nll_regkl')
   nll_subs = [s for s in dataset.values()
               if s.aligned is None and s.x.shape[0] > 0]
-  if not nll_subs or any(s.y.shape[1] != 1 for s in nll_subs):
+  kl_subs = [s for s in dataset.values()
+             if s.aligned is not None and s.x.shape[0] > 0]
+  if need_nll and (not nll_subs or any(s.y.shape[1] != 1 for s in nll_subs)):
     raise _not_ported('training on multi-output or empty sub-datasets')
+  if need_kl and not kl_subs:
+    # The divergence over no aligned sub-dataset is 0: the combined
+    # objective reduces to the NLL.
+    if kind == 'kl':
+      raise _not_ported('the EKL objective without aligned sub-datasets')
+    need_kl = False
 
   batch_size = int(config.get('batch_size', 1 << 30))
   pad = int(config.get('train_pad_to_multiple', 8))
-  data = packed_lib.pack_dataset(dataset, pad_to_multiple=pad,
-                                 device=device)[0]
+  pnll = (packed_lib.pack_dataset(dataset, pad_to_multiple=pad,
+                                  device=device)[0] if need_nll else None)
+  pekl = (packed_lib.pack_aligned_dataset(dataset, pad_to_multiple=pad,
+                                          device=device)[0]
+          if need_kl else None)
 
   def loss_fn(model, batch):
+    bn, bk = batch
     shim = GPParams(model=model, config=config)
-    return packed_lib.neg_log_marginal_likelihood_packed(
-        mean_func, cov_func, shim, batch, warp_func=warp_func)
+    total = 0.0
+    if bn is not None:
+      total = total + packed_lib.neg_log_marginal_likelihood_packed(
+          mean_func, cov_func, shim, bn, warp_func=warp_func)
+    if bk is not None:
+      val = packed_lib.multivariate_normal_divergence_packed(
+          mean_func, cov_func, shim, bk, warp_func=warp_func)
+      total = total + (val if kind == 'kl' else weight * val)
+    return total
 
   def subsample_fn(generator, d):
-    return packed_lib.subsample_packed(generator, d, batch_size)
+    bn, bk = d
+    if bn is not None:
+      bn = packed_lib.subsample_packed(generator, bn, batch_size)
+    if bk is not None:
+      bk = packed_lib.subsample_aligned_packed(generator, bk, batch_size)
+    return bn, bk
 
-  return loss_fn, data, subsample_fn
+  return loss_fn, (pnll, pekl), subsample_fn
 
 
 def infer_parameters(mean_func,
@@ -91,10 +127,10 @@ def infer_parameters(mean_func,
                      generator: Optional[torch.Generator] = None,
                      get_params_path=None,
                      callback=None,
-                     device: Union[str, torch.device] = 'cpu') -> GPParams:
+                     device: Union[str, torch.device] = 'cuda') -> GPParams:
   """Fit GP (hyper)parameters to a multi-task dataset with Adam on the
-  packed route. Returns init_params with the trained model (kept only if
-  the final loss is finite) and an emptied cache."""
+  packed route, on `device`. Returns init_params with the trained model
+  (kept only if the final loss is finite) and an emptied cache."""
   if not dataset:
     logging.info('No dataset present to train GP.')
     return init_params
@@ -238,7 +274,7 @@ class GP:
                cov_func: Callable[..., torch.Tensor],
                params: GPParams,
                warp_func: defs.WarpFuncType = None,
-               device: Union[str, torch.device] = 'cpu'):
+               device: Union[str, torch.device] = 'cuda'):
     self.device = resolve_device(device)
     self.mean_func = mean_func
     self.cov_func = cov_func
@@ -467,8 +503,61 @@ class GP:
         cov = cov * (len_dataset / (len_dataset - 1.))
     return mu, cov
 
+  def neg_log_marginal_likelihood(self):
+    """(total_nll, key -> nll dict) through the SVD evaluation."""
+    return obj.neg_log_marginal_likelihood(
+        mean_func=self.mean_func,
+        cov_func=self.cov_func,
+        params=self.params,
+        dataset=self.dataset,
+        warp_func=self.warp_func,
+        return_key2nll=True,
+        use_cholesky=False)
+
+  def empirical_divergence(
+      self, distance=divergences.kl_multivariate_normal):
+    """Divergence between sample MVN stats and the model on aligned data,
+    one aligned sub-dataset after another."""
+    return obj.multivariate_normal_divergence(
+        mean_func=self.mean_func,
+        cov_func=self.cov_func,
+        params=self.params,
+        dataset=self.dataset,
+        warp_func=self.warp_func,
+        distance=distance)
+
+  def empirical_divergence_packed(self, partial: bool = True,
+                                  eps: float = 1e-6):
+    """EKL (full or partial) over the aligned sub-datasets in one batched
+    pass; 0 when there is no aligned data."""
+    try:
+      packed, _ = packed_lib.pack_aligned_dataset(self.dataset,
+                                                  device=self.device)
+    except ValueError:
+      return 0.
+    return packed_lib.multivariate_normal_divergence_packed(
+        self.mean_func, self.cov_func, self.params, packed,
+        warp_func=self.warp_func, partial=partial, eps=eps)
+
+  @torch.no_grad()
   def stats(self, verbose=True):
-    raise _not_ported('GP.stats (the SVD NLL and EKL/EUC divergences)')
+    """(nll, ekl, ekl_partial, euc, key2nll) of the current model.
+
+    Every dense factorization in it goes through ops/chol.cholesky, so the
+    routes set there (kernels K6 and K7) serve it.
+    """
+    self.params.model = convert.model_to(self.params.model, self.device)
+    nll, key2nll = self.neg_log_marginal_likelihood()
+    ekl = self.empirical_divergence_packed(partial=False, eps=1e-6)
+    ekl_partial = self.empirical_divergence_packed(partial=True, eps=1e-6)
+    euc = self.empirical_divergence(
+        distance=divergences.euclidean_multivariate_normal)
+    msg = (f'nll = {nll}, ekl = {ekl}, ekl_partial = {ekl_partial}, '
+           f'euc = {euc}')
+    if verbose:
+      print(msg)
+    logging.info(msg)
+    return nll, ekl, ekl_partial, euc, key2nll
 
 
 class HGP(GP):

@@ -1,4 +1,4 @@
-"""Packed (padded + masked) multi-task GP objectives, NLL half (port of
+"""Packed (padded + masked) multi-task GP objectives (port of
 hyperbo_tpu/models/packed.py).
 
 Sub-datasets are packed into dense (T, n_max, ...) buffers with row masks,
@@ -11,8 +11,12 @@ With config['fused_mll'] = True and a served kernel at n_max >= 512, each
 task goes through the fused large-n route instead (ops/fused_mll, kernels
 K2-K4), one task after another.
 
-The aligned/EKL half (pack_aligned_dataset, the KL variants,
-subsample_aligned_packed) and the window sampler wait (ROADMAP Queue A).
+The aligned half packs the aligned sub-datasets (n matched inputs, m
+function draws each) into (T, n_max, m_max) buffers and evaluates the
+partial or full (SVD-whitened) KL of every task at once; its
+factorizations go through ops/chol.cholesky and take its opt-in routes
+(kernels K6 and K7). The window sampler (prepermute_packed,
+subsample_packed_window) waits (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -50,7 +54,7 @@ def pack_dataset(dataset: Dict[Union[int, str], SubDataset],
                  pad_to_multiple: int = 8,
                  num_tasks_multiple: int = 1,
                  dtype=torch.float32,
-                 device: Union[str, torch.device] = 'cpu'
+                 device: Union[str, torch.device] = 'cuda'
                  ) -> Tuple[PackedDataset, List[Any]]:
   """Pack the non-aligned, single-output sub-datasets into dense buffers.
 
@@ -253,3 +257,202 @@ def take_rows(packed: PackedDataset, sel: torch.Tensor) -> PackedDataset:
           < count[:, None])
   return PackedDataset(x=x, y=y, mask=mask, count=count,
                        task_mask=packed.task_mask)
+
+
+class PackedAlignedDataset(NamedTuple):
+  """Dense aligned-task batch: T tasks, n_max matched inputs, m_max
+  function draws per task."""
+  x: torch.Tensor        # (T, n_max, d)
+  y: torch.Tensor        # (T, n_max, m_max)
+  n_mask: torch.Tensor   # (T, n_max) valid rows
+  m_mask: torch.Tensor   # (T, m_max) valid function draws
+  count_n: torch.Tensor  # (T,)
+  count_m: torch.Tensor  # (T,)
+  task_mask: torch.Tensor  # (T,)
+
+
+def pack_aligned_dataset(dataset: Dict[Union[int, str], SubDataset],
+                         pad_to_multiple: int = 8,
+                         num_tasks_multiple: int = 1,
+                         dtype=torch.float32,
+                         device: Union[str, torch.device] = 'cuda'
+                         ) -> Tuple[PackedAlignedDataset, List[Any]]:
+  """Pack the aligned sub-datasets (n x m matched evaluations) on
+  `device`."""
+  keys = [k for k, s in dataset.items()
+          if s.aligned is not None and s.x.shape[0] > 0]
+  if not keys:
+    raise ValueError('No aligned sub-datasets to pack.')
+  subs = [dataset[k] for k in keys]
+  d = subs[0].x.shape[1]
+  n_max = _round_up(max(s.x.shape[0] for s in subs), pad_to_multiple)
+  m_max = _round_up(max(s.y.shape[1] for s in subs), pad_to_multiple)
+  t_total = _round_up(len(subs), num_tasks_multiple)
+
+  opts = dict(dtype=dtype, device=device)
+  x = torch.zeros((t_total, n_max, d), **opts)
+  y = torch.zeros((t_total, n_max, m_max), **opts)
+  n_mask = torch.zeros((t_total, n_max), dtype=torch.bool, device=device)
+  m_mask = torch.zeros((t_total, m_max), dtype=torch.bool, device=device)
+  count_n = torch.zeros((t_total,), dtype=torch.int32, device=device)
+  count_m = torch.zeros((t_total,), dtype=torch.int32, device=device)
+  for i, s in enumerate(subs):
+    n, m = s.y.shape
+    x[i, :n] = torch.as_tensor(s.x, **opts)
+    y[i, :n, :m] = torch.as_tensor(s.y, **opts)
+    n_mask[i, :n] = True
+    m_mask[i, :m] = True
+    count_n[i] = n
+    count_m[i] = m
+  task_mask = torch.arange(t_total, device=device) < len(subs)
+  return PackedAlignedDataset(x, y, n_mask, m_mask, count_n, count_m,
+                              task_mask), keys
+
+
+def _aligned_task_stats(mean_func, cov_func, params, packed, warp_func,
+                        eps):
+  """Masked sample and model MVN statistics of every task, shared by the
+  KL variants: (mu_data, cov_data, mu_model, kmat).
+
+  cov_data is the biased sample covariance over the valid draws (+ eps on
+  the valid diagonal) and kmat the model covariance + (noise + eps) ridge;
+  padded rows and columns of both are zero (the KL variants fill what they
+  need).
+  """
+  noise_variance, = retrieve_params(params, ['noise_variance'],
+                                    warp_func=warp_func)
+  x, y, n_mask, m_mask = packed.x, packed.y, packed.n_mask, packed.m_mask
+  m = torch.clamp(packed.count_m, min=1).to(y.dtype)[:, None]
+  mu_data = torch.sum(y * m_mask[:, None, :], dim=-1) / m       # (T, n)
+  centered = (y - mu_data[..., None]) * m_mask[:, None, :]
+  cov_data = centered @ centered.transpose(-1, -2) / m[..., None]
+  pair = n_mask[:, :, None] & n_mask[:, None, :]
+  mu_data = torch.where(n_mask, mu_data, 0.0)
+  eye = torch.eye(x.shape[1], dtype=cov_data.dtype, device=x.device)
+  cov_data = torch.where(pair, cov_data, 0.0) + eye * torch.where(
+      n_mask, eps, 0.0)[:, None, :]
+
+  mu_model = mean_func(params, x, warp_func=warp_func)[..., 0]
+  mu_model = torch.where(n_mask, mu_model, 0.0)
+  kmat = cov_func(params, x, warp_func=warp_func)
+  kmat = torch.where(pair, kmat, 0.0) + eye * torch.where(
+      n_mask, noise_variance + eps, 0.0)[:, None, :]
+  return mu_data, cov_data, mu_model, kmat
+
+
+def _full_kl_tasks(mean_func, cov_func, params, packed, warp_func, eps):
+  """(T,) masked FULL KL (divergences.kl_multivariate_normal(partial=False))
+  with static shapes.
+
+  Singular directions beyond the numerical rank of the sample covariance
+  (and the padded dimensions, whose singular values are exactly 0) are
+  zeroed in the whitener and identity-filled in the whitened model
+  covariance, so each null dimension adds 1 to the trace, 0 to the log-det
+  and 0 to the Mahalanobis term; subtracting the full padded size n_max
+  then gives the reference value
+    0.5 (tr_s + mahal + logdet_s - rank)
+      = 0.5 (tr_full + mahal + logdet_full - n_max).
+  """
+  mu_data, cov_data, mu_model, kmat = _aligned_task_stats(
+      mean_func, cov_func, params, packed, warp_func, eps)
+  n_max = packed.x.shape[1]
+  u, s, _ = torch.linalg.svd(cov_data)
+  # The reference rank tolerance (ops/linalg.svd_matrix_sqrt) with the
+  # true row count, not the padded one.
+  tol = (s.max(dim=-1).values * torch.finfo(s.dtype).eps / 2. *
+         torch.sqrt(2. * packed.count_n.to(s.dtype) + 1.))
+  support = s > tol[:, None]
+  s_safe = torch.where(support, s, 1.0)
+  # Whitener W = pinv(U sqrt(S)) = diag(support / sqrt(s)) U^T.
+  w = (support / torch.sqrt(s_safe))[..., None] * u.transpose(-1, -2)
+  mu1 = (w @ (mu_model - mu_data)[..., None])[..., 0]
+  cov1 = w @ kmat @ w.transpose(-1, -2)
+  eye = torch.eye(n_max, dtype=cov1.dtype, device=cov1.device)
+  cov1 = cov1 + eye * (1.0 - support.to(cov1.dtype))[:, None, :]
+
+  chol = chol_ops.cholesky(cov1)
+  kinv_mu = chol_ops.cho_solve(chol, mu1)
+  vinv = chol_ops.solve_triangular(chol, eye.expand_as(chol), lower=True)
+  tr_full = torch.sum(vinv * vinv, dim=(-2, -1))  # tr cov1^{-1}
+  mahal = torch.sum(mu1 * kinv_mu, dim=-1)
+  return 0.5 * (tr_full + mahal + chol_ops.logdet_from_chol(chol) - n_max)
+
+
+def _partial_kl_tasks(mean_func, cov_func, params, packed, warp_func, eps):
+  """(T,) masked partial KL: tr(K^-1 C) + (mu_K - mu_C)^T K^-1 (mu_K - mu_C)
+  + logdet K, with C, mu_C the sample covariance and mean over the m
+  matched draws and K the model covariance with the noise (+ eps) ridge.
+  Padded rows of K are identity rows (no contribution)."""
+  mu_data, cov_data, mu_model, kmat = _aligned_task_stats(
+      mean_func, cov_func, params, packed, warp_func, eps)
+  eye = torch.eye(packed.x.shape[1], dtype=kmat.dtype, device=kmat.device)
+  kmat = kmat + eye * torch.where(packed.n_mask, 0.0, 1.0)[:, None, :]
+  chol = chol_ops.cholesky(kmat)
+  mu_diff = mu_model - mu_data
+  kinv_mudiff = chol_ops.cho_solve(chol, mu_diff)
+  kinv_cov = chol_ops.cho_solve(chol, cov_data)
+  tr = torch.diagonal(kinv_cov, dim1=-2, dim2=-1).sum(dim=-1)
+  mahalanobis = torch.sum(mu_diff * kinv_mudiff, dim=-1)
+  return tr + mahalanobis + chol_ops.logdet_from_chol(chol)
+
+
+def per_task_divergence_packed(
+    mean_func, cov_func, params, packed: PackedAlignedDataset,
+    warp_func=None, partial: bool = True,
+    eps: float = 0.0) -> torch.Tensor:
+  """(T,) per-task EKL values of a packed aligned batch (unmasked)."""
+  kl_fn = _partial_kl_tasks if partial else _full_kl_tasks
+  return kl_fn(mean_func, cov_func, params, packed, warp_func, eps)
+
+
+def multivariate_normal_divergence_packed(
+    mean_func, cov_func, params, packed: PackedAlignedDataset,
+    warp_func=None, partial: bool = True,
+    eps: float = 0.0) -> torch.Tensor:
+  """Mean EKL over the packed aligned tasks.
+
+  partial=True matches objectives.multivariate_normal_divergence with the
+  default partial KL; partial=False is the full SVD-whitened KL. `eps` is
+  the diagonal ridge the host path adds to both covariances (GP.stats uses
+  1e-6).
+  """
+  per_task = per_task_divergence_packed(
+      mean_func, cov_func, params, packed, warp_func=warp_func,
+      partial=partial, eps=eps)
+  per_task = torch.where(packed.task_mask, per_task, 0.0)
+  num = torch.clamp(packed.task_mask.sum(), min=1)
+  return per_task.sum() / num
+
+
+def subsample_aligned_packed(generator: Optional[torch.Generator],
+                             packed: PackedAlignedDataset,
+                             batch_size: int) -> PackedAlignedDataset:
+  """Per-task uniform random subsample of the matched inputs to at most
+  batch_size rows; every task keeps all its m draws (only the n axis is
+  subsampled, as the reference iterator does for aligned sub-datasets).
+  Top-k over uniform scores drawn on the generator's device, then a row
+  gather, as subsample_packed."""
+  t, n_max, _ = packed.x.shape
+  if batch_size >= n_max:
+    return packed
+  device = packed.x.device
+  scores = torch.rand(
+      (t, n_max), generator=generator,
+      device=generator.device if generator is not None else device)
+  scores = torch.where(packed.n_mask, scores.to(device), float('-inf'))
+  sel = torch.topk(scores, batch_size, dim=1).indices
+  return take_aligned_rows(packed, sel)
+
+
+def take_aligned_rows(packed: PackedAlignedDataset,
+                      sel: torch.Tensor) -> PackedAlignedDataset:
+  """The batch of matched-input rows `sel` (T, B) of each task, valid rows
+  first (as take_rows)."""
+  batch_size = sel.shape[1]
+  d, m = packed.x.shape[-1], packed.y.shape[-1]
+  x = torch.gather(packed.x, 1, sel[..., None].expand(-1, -1, d))
+  y = torch.gather(packed.y, 1, sel[..., None].expand(-1, -1, m))
+  count_n = torch.clamp(packed.count_n, max=batch_size)
+  n_mask = (torch.arange(batch_size, device=sel.device)[None, :]
+            < count_n[:, None])
+  return packed._replace(x=x, y=y, n_mask=n_mask, count_n=count_n)

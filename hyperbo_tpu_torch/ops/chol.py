@@ -5,23 +5,139 @@ hyperbo_tpu/ops/chol.py).
 returns NaN for a matrix that is not positive definite, and the trainer's
 NaN-freeze (train/adam.py) relies on that. torch.linalg.cholesky raises
 instead, so this uses torch.linalg.cholesky_ex and fills every batch entry
-whose factorization failed with NaN.
+whose factorization failed with NaN. Every route below keeps the same
+contract (where the TPU kernels clamp the pivot and return finite garbage).
 
-The JAX module's opt-in Pallas routes (the base-case panel kernel and the
-HBM-streaming factorization) are not ported yet: see ROADMAP Queue B, K6
-and K7.
+Three opt-in routes, as in the JAX module, off by default and taken in its
+order of precedence:
+  * set_use_hbm_kernel: n >= 1024 with n % 512 == 0 goes through kernel K6
+    (ops/chol_hbm.py);
+  * set_use_recursive: n > base_block goes through the explicit 2 x 2 block
+    recursion `_blocked_cholesky`, whose Schur products are torch.matmul in
+    full float32 (the package pins TF32 off);
+  * set_use_pallas_base: the base cases (n <= 512, directly or inside the
+    recursion) go through kernel K7 (ops/chol_panel.py).
+The JAX module applies them to one matrix (a.ndim == 2), which is what each
+matrix of its vmapped callers is; here the same n conditions apply to every
+matrix of a (..., n, n) batch, and the kernels take the batch.
+
+A routed factor is forward-only, as in the JAX package, where jax.grad
+through the Pallas kernels fails: asking for its gradient raises
+NotImplementedError. The default route (all off) stays differentiable.
+`set_schur_precision` picks an XLA dot algorithm for the Schur products;
+it has no counterpart here, where every float32 product is full float32.
 """
 
 from __future__ import annotations
 
 import torch
 
+# Below this size, the base-case factorization is used directly.
+_BASE_BLOCK = 512
 
-def cholesky(a: torch.Tensor) -> torch.Tensor:
-  """Lower Cholesky factor of SPD matrices (..., n, n); NaN where not PD."""
+_USE_PALLAS_BASE = False
+_USE_RECURSIVE = False
+_USE_HBM_KERNEL = False
+
+
+def set_use_pallas_base(value: bool):
+  """Route base-case factorizations (n <= 512) through kernel K7."""
+  global _USE_PALLAS_BASE
+  _USE_PALLAS_BASE = bool(value)
+
+
+def set_use_recursive(value: bool):
+  """Route large factorizations through the explicit blocked recursion."""
+  global _USE_RECURSIVE
+  _USE_RECURSIVE = bool(value)
+
+
+def set_use_hbm_kernel(value: bool):
+  """Route large factorizations (n >= 1024, n % 512 == 0) through kernel
+  K6."""
+  global _USE_HBM_KERNEL
+  _USE_HBM_KERNEL = bool(value)
+
+
+def plain_cholesky(a: torch.Tensor) -> torch.Tensor:
+  """torch.linalg.cholesky_ex, NaN for every matrix whose factorization
+  failed (the plain version of every route)."""
   chol, info = torch.linalg.cholesky_ex(a)
   failed = (info != 0)[..., None, None]
   return torch.where(failed, torch.full_like(chol, float('nan')), chol)
+
+
+def poison_non_pd(chol: torch.Tensor) -> torch.Tensor:
+  """NaN for every matrix of the batch whose factor has a diagonal entry
+  that is not > 0: a failed pivot (negative, zero or NaN) of a kernel, or
+  a failed block of the recursion."""
+  diag = torch.diagonal(chol, dim1=-2, dim2=-1)
+  bad = ~(diag > 0).all(dim=-1)
+  return torch.where(bad[..., None, None],
+                     torch.full_like(chol, float('nan')), chol)
+
+
+def _base_cholesky(a: torch.Tensor) -> torch.Tensor:
+  from hyperbo_tpu_torch.ops import chol_panel
+  if _USE_PALLAS_BASE and a.shape[-1] <= chol_panel.MAX_N:
+    # The kernels take contiguous tensors; the recursion's blocks are views.
+    return chol_panel.cholesky_panel(a.contiguous())
+  return plain_cholesky(a)
+
+
+def _blocked_cholesky(a: torch.Tensor, base_block: int = _BASE_BLOCK
+                      ) -> torch.Tensor:
+  """Recursive blocked Cholesky; `a` is (..., n, n) SPD, returns lower L."""
+  n = a.shape[-1]
+  # The split point is always >= 128, so recursion needs n > 256.
+  if n <= max(base_block, 256):
+    return _base_cholesky(a)
+  # Split point: half, rounded down to a multiple of 128.
+  k = max(128, (n // 2 // 128) * 128)
+  l11 = _blocked_cholesky(a[..., :k, :k], base_block)
+  # L21 L11^T = A21: a right-side solve against L11^T.
+  l21 = torch.linalg.solve_triangular(
+      l11.transpose(-1, -2), a[..., k:, :k], upper=True, left=False)
+  s22 = a[..., k:, k:] - torch.matmul(l21, l21.transpose(-1, -2))
+  l22 = _blocked_cholesky(s22, base_block)
+  top = torch.cat([l11, l11.new_zeros(a.shape[:-2] + (k, n - k))], dim=-1)
+  return torch.cat([top, torch.cat([l21, l22], dim=-1)], dim=-2)
+
+
+class _ForwardOnly(torch.autograd.Function):
+  """The factor of a route, with a backward that fails loudly."""
+
+  @staticmethod
+  def forward(ctx, a, route):
+    return poison_non_pd(route(a.contiguous()))
+
+  @staticmethod
+  def backward(ctx, grad):
+    raise NotImplementedError(
+        'the Cholesky routes of set_use_hbm_kernel, set_use_recursive and '
+        'set_use_pallas_base are forward-only: turn them off to '
+        'differentiate through the factorization')
+
+
+def cholesky(a: torch.Tensor, base_block: int = _BASE_BLOCK) -> torch.Tensor:
+  """Lower Cholesky factor of SPD matrices (..., n, n); NaN where not PD."""
+  # The kernels' modules import this one, so they are imported here.
+  from hyperbo_tpu_torch.ops import chol_hbm, chol_panel
+  n = a.shape[-1]
+  if _USE_HBM_KERNEL and n >= 1024 and n % 512 == 0:
+    return _ForwardOnly.apply(a, chol_hbm.cholesky_hbm)
+  if _USE_RECURSIVE and n > base_block:
+    return _ForwardOnly.apply(
+        a, lambda m: _blocked_cholesky(m, base_block))
+  if _USE_PALLAS_BASE and n <= chol_panel.MAX_N:
+    return _ForwardOnly.apply(a, chol_panel.cholesky_panel)
+  return plain_cholesky(a)
+
+
+def logdet_from_chol(chol: torch.Tensor) -> torch.Tensor:
+  """log det K = 2 sum log diag L."""
+  return 2.0 * torch.sum(
+      torch.log(torch.diagonal(chol, dim1=-2, dim2=-1)), dim=-1)
 
 
 def solve_triangular(a: torch.Tensor,

@@ -1,12 +1,12 @@
 """Dense linear algebra for GP inference (port of hyperbo_tpu/ops/linalg.py).
 
-Only what the ported slice calls: the GP system (K + sigma^2 I) v = y - mu
-and its factorization. The JAX module's custom-VJP
-`inverse_spdmatrix_vector_product` is not needed here, because no ported
-path differentiates through the dense solve (training goes through
-ops/batch_chol.nll_terms_batched, or autograd of cholesky_ex for packed
-widths above 128). `svd_matrix_sqrt`, `safe_l2norm` and `tri_inv_blocked`
-wait for the EKL half (ROADMAP Queue A).
+The GP system (K + sigma^2 I) v = y - mu and its factorization, the SPD
+inverse-vector product with the JAX package's custom VJP (a
+torch.autograd.Function here), the SVD square root of a PSD matrix, and the
+square root with a clamped gradient at 0. Every factorization goes through
+ops/chol.cholesky and so takes its opt-in routes. `tri_inv_blocked` (the
+JAX fused backward's XLA inverse) has no caller in the port: the fused
+backward runs kernel K3 (ops/tri_inv.py).
 """
 
 from __future__ import annotations
@@ -20,7 +20,88 @@ from hyperbo_tpu_torch.ops import chol as chol_ops
 def solve_linear_system(coeff, b):
   """Solve Ax = b with A = coeff SPD. Returns (chol, x)."""
   chol = chol_ops.cholesky(coeff)
-  return chol, chol_ops.cho_solve(chol, b)
+  kinvy = inverse_spdmatrix_vector_product(coeff, b, cached_cholesky=chol)
+  return chol, kinvy
+
+
+def svd_matrix_sqrt(cov, jit_safe: bool = False):
+  """Square root of a PSD matrix via SVD with rank truncation.
+
+  Returns A with A A^T = cov. With jit_safe False (the reference), columns
+  beyond the numerical rank are dropped; with True they are zeroed instead,
+  so the result keeps the shape of cov.
+  """
+  u, s, _ = torch.linalg.svd(cov)
+  factor = u * torch.sqrt(torch.clamp(s, min=0.0))[..., None, :]
+  tol = (s.max() * torch.finfo(s.dtype).eps / 2. *
+         (2 * cov.shape[0] + 1.) ** 0.5)
+  if jit_safe:
+    return factor * (s > tol).to(factor.dtype)[None, :]
+  rank = int(torch.count_nonzero(s > tol))
+  return factor[:, :rank]
+
+
+def cholesky_cache(spd_matrix, cached_cholesky):
+  """Cholesky factor of `spd_matrix` unless one is already given."""
+  if cached_cholesky is not None:
+    return cached_cholesky
+  return chol_ops.cholesky(spd_matrix)
+
+
+class _InverseSpdVectorProduct(torch.autograd.Function):
+  """K^{-1} x from K's factor, with the JAX package's VJP: for a cotangent
+  g, grad_K = -(K^{-1} g)(K^{-1} x)^T and grad_x = K^{-1} g. The factor
+  gets no gradient (the JAX VJP returns None for it)."""
+
+  @staticmethod
+  def forward(ctx, spd_matrix, x, chol):
+    out = chol_ops.cho_solve(chol, x)
+    ctx.save_for_backward(chol, out)
+    return out
+
+  @staticmethod
+  def backward(ctx, g):
+    chol, out = ctx.saved_tensors
+    ginv = chol_ops.cho_solve(chol, g)
+    # Shape-aware: n-vector and n x m right-hand sides alike.
+    a = out[:, None] if out.ndim == 1 else out
+    b = ginv[:, None] if ginv.ndim == 1 else ginv
+    return -torch.matmul(b, a.T), ginv, None
+
+
+def inverse_spdmatrix_vector_product(spd_matrix, x, cached_cholesky=None):
+  """spd_matrix^{-1} x for SPD spd_matrix (n, n) and x (n,) or (n, m).
+
+  The backward costs two triangular solves against the forward's factor
+  instead of differentiating through the factorization.
+  """
+  chol = cholesky_cache(spd_matrix, cached_cholesky)
+  return _InverseSpdVectorProduct.apply(spd_matrix, x, chol)
+
+
+class _SafeSqrt(torch.autograd.Function):
+  """sqrt whose gradient at 0 is 1e6 instead of inf (the reference's
+  _safe_sqrt)."""
+
+  @staticmethod
+  def forward(ctx, x):
+    out = torch.sqrt(x)
+    ctx.save_for_backward(x, out)
+    return out
+
+  @staticmethod
+  def backward(ctx, g):
+    x, out = ctx.saved_tensors
+    return torch.where(x != 0., g * 0.5 / out, torch.full_like(x, 1e6))
+
+
+def safe_sqrt(x):
+  return _SafeSqrt.apply(x)
+
+
+def safe_l2norm(x):
+  """L2 norm of x without a NaN gradient at 0."""
+  return safe_sqrt(torch.sum(x**2))
 
 
 def compute_delta_y_and_cov(mean_func,

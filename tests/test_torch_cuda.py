@@ -13,7 +13,11 @@ another order on another device). The fused large-n kernels K2-K4 against
 their float64 plain versions: L within atol 5e-4 (tests/test_pallas_chol.py),
 quad and logdet within rtol 1e-4 (tests/test_objectives.py:313), T, P and
 the two backward scalars within 5e-3 of their largest entry (bench.py:540,
-the gradient parity bound).
+the gradient parity bound). The dense-Cholesky kernels K6 and K7 against
+their float64 plain versions: atol 5e-4 (tests/test_pallas_chol.py); the
+model evaluation through them within rtol 1e-4 of the cuSOLVER route for
+the NLL and the partial EKL, and 1e-3 for the full EKL, whose whitened
+covariance amplifies the factorizations' float32 rounding.
 """
 
 import numpy as np
@@ -25,6 +29,9 @@ from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
 from hyperbo_tpu_torch.models import gp, kernel, mean
 from hyperbo_tpu_torch.ops import batch_chol
+from hyperbo_tpu_torch.ops import chol as chol_ops
+from hyperbo_tpu_torch.ops import chol_hbm
+from hyperbo_tpu_torch.ops import chol_panel
 from hyperbo_tpu_torch.ops import fused_mll
 from hyperbo_tpu_torch.ops import mll_bwd
 from hyperbo_tpu_torch.ops import tri_inv
@@ -244,3 +251,66 @@ def test_fused_training_runs_through_the_kernels(cuda_device):
   after = [k.KERNEL.launches for k in (fused_mll, tri_inv, mll_bwd)]
   assert [a - b for a, b in zip(after, before)] == [steps * 2] * 3
   np.testing.assert_allclose(traces[1], traces[0], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('module,t,n', [
+    (chol_panel, 1, 1), (chol_panel, 1, 37), (chol_panel, 1, 300),
+    (chol_panel, 1, 512), (chol_panel, 23, 100), (chol_hbm, 1, 1024),
+    (chol_hbm, 2, 1024), (chol_hbm, 1, 2048)])
+def test_dense_cholesky_kernels_match_plain(cuda_device, module, t, n):
+  """K7 (chol_panel) and K6 (chol_hbm) against their float64 plain
+  versions, one launch each; a non-PD matrix of the batch comes out NaN."""
+  kb = _spd_batch(t + n, t, n).to(cuda_device)
+  launch = (chol_panel.launch_chol_panel if module is chol_panel
+            else chol_hbm.launch_chol_hbm)
+  plain = (chol_panel.cholesky_panel_plain if module is chol_panel
+           else chol_hbm.cholesky_hbm_plain)
+  before = module.KERNEL.launches
+  got = launch(kb)
+  torch.cuda.synchronize()
+  assert module.KERNEL.launches == before + 1
+  np.testing.assert_allclose(got.cpu().double().numpy(),
+                             plain(kb.double()).cpu().numpy(), atol=5e-4)
+  bad = kb.clone()
+  bad[-1, -1, -1] = -5.0
+  got = launch(bad).cpu()
+  assert torch.isnan(got[-1]).all()
+  assert torch.isfinite(got[:-1]).all()
+
+
+@pytest.mark.cuda
+def test_stats_runs_through_the_dense_cholesky_kernels(cuda_device):
+  """GP.stats() on the card through K6 and through the recursion with K7
+  base cases launches them and agrees with the cuSOLVER route."""
+  rng = np.random.default_rng(11)
+  x = rng.uniform(size=(1024, 3)).astype(np.float32)
+  w = rng.normal(size=(3, 6))
+  y = (np.sin(3 * x @ w) + 0.1 * rng.normal(size=(1024, 6))).astype(
+      np.float32)
+  data = {'plain': (x[:200], y[:200, :1]),
+          'aligned': defs.SubDataset(x, y, 'aligned')}
+  model = gp.GP(data, mean.constant, kernel.squared_exponential,
+                defs.GPParams(model={'constant': 0., 'lengthscale': 0.,
+                                     'signal_variance': 0.,
+                                     'noise_variance': -3.},
+                              config={'objective': 'nll'}),
+                DEFAULT_WARP_FUNC, device=cuda_device)
+  model.initialize_params(torch.Generator(device=cuda_device).manual_seed(0))
+  want = [float(v) for v in model.stats(verbose=False)[:4]]
+  for setters, kern in (
+      ((chol_ops.set_use_hbm_kernel,), chol_hbm.KERNEL),
+      ((chol_ops.set_use_recursive, chol_ops.set_use_pallas_base),
+       chol_panel.KERNEL)):
+    before = kern.launches
+    try:
+      for setter in setters:
+        setter(True)
+      got = [float(v) for v in model.stats(verbose=False)[:4]]
+    finally:
+      for setter in setters:
+        setter(False)
+    assert kern.launches > before
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
+    np.testing.assert_allclose(got[1], want[1], rtol=1e-3)
+    np.testing.assert_allclose(got[2:], want[2:], rtol=1e-4)

@@ -67,7 +67,7 @@ def test_packed_route_matches_jax():
       jax.tree.map(jnp.asarray, model))
   tpack, _ = tpacked.pack_dataset(
       {k: tdefs.SubDataset(x, y) for k, (x, y) in data.items()},
-      pad_to_multiple=8)
+      pad_to_multiple=8, device='cpu')
   assert tpack.x.shape[1] == 600
   model_t = {k: v.requires_grad_(True)
              for k, v in convert.model_from_jax(model).items()}
@@ -128,7 +128,7 @@ def test_interpret_flag_raises():
   with pytest.raises(ValueError, match='interpret'):
     _torch_value_and_grad('squared_exponential', x, y, model,
                           {'fused_mll': 'interpret'})
-  tpack, _ = tpacked.pack_dataset({0: tdefs.SubDataset(x, y)})
+  tpack, _ = tpacked.pack_dataset({0: tdefs.SubDataset(x, y)}, device='cpu')
   with pytest.raises(ValueError, match='interpret'):
     tpacked.per_task_nll_packed(
         tmean.constant, tkernel.squared_exponential,

@@ -184,7 +184,7 @@ def _ragged_pack(seed=4, tasks=3, n=40, d=2):
       {k: jdefs.SubDataset(*v) for k, v in data.items()}, pad_to_multiple=8)
   tpack, _ = tpacked.pack_dataset(
       {k: tdefs.SubDataset(_t(v[0]), _t(v[1])) for k, v in data.items()},
-      pad_to_multiple=8)
+      pad_to_multiple=8, device='cpu')
   model = {'constant': np.float32(0.2),
            'lengthscale': np.zeros(d, np.float32),
            'signal_variance': np.float32(0.1),
@@ -240,18 +240,36 @@ def test_subsample_packed_draws_valid_rows():
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):
+  """The entry points run on the card unless the caller asks for the CPU:
+  without CUDA, the default device and an explicit 'cuda' both raise."""
+  from hyperbo_tpu_torch.bo import acfun as tacfun
+  from hyperbo_tpu_torch.bo import bayesopt as tbo
   monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
   x = np.zeros((4, 2), np.float32)
-  with pytest.raises(RuntimeError, match='CUDA is not available'):
-    tgp.GP({0: (x, x[:, :1])}, tmean.zero, tkernel.squared_exponential,
-           tdefs.GPParams(), device='cuda')
+  data = {0: (x, x[:, :1])}
+  for kwargs in ({}, {'device': 'cuda'}):
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+      tgp.GP(data, tmean.zero, tkernel.squared_exponential,
+             tdefs.GPParams(), **kwargs)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+      tbo.run_bayesopt(data, 'test', tdefs.SubDataset(x, x[:, :1]),
+                       tmean.zero, tkernel.squared_exponential,
+                       tdefs.GPParams(), tacfun.ei, 1, **kwargs)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+      tgp.infer_parameters(
+          tmean.zero, tkernel.squared_exponential,
+          tdefs.GPParams(config={'method': 'adam', 'max_training_step': 1}),
+          {0: tdefs.SubDataset(torch.zeros(4, 2), torch.zeros(4, 1))},
+          **kwargs)
 
 
 PORT_MODULES = [
     'core.defs', 'core.warp', 'core.convert', 'ops.gram', 'ops.chol',
-    'ops.linalg', 'ops.batch_chol', 'ops._build', 'models.basis',
-    'models.kernel', 'models.mean', 'models.packed', 'models.objectives',
-    'models.gp', 'train.adam', 'bo.acfun', 'bo.bayesopt', 'bo.const']
+    'ops.chol_hbm', 'ops.chol_panel', 'ops.linalg', 'ops.batch_chol',
+    'ops._build', 'models.basis', 'models.kernel', 'models.mean',
+    'models.packed', 'models.objectives', 'models.priors',
+    'models.divergences', 'models.gp', 'train.adam', 'bo.acfun',
+    'bo.bayesopt', 'bo.const']
 
 
 def test_port_imports_without_jax():

@@ -187,7 +187,8 @@ def test_run_bayesopt_end_to_end():
       tkernel.squared_exponential_mlp,
       tdefs.GPParams(model=_model0(), config=config), tacfun.ei, 3,
       warp_func=TWARP, init_random_key=torch.Generator().manual_seed(0),
-      init_model=True, callback=lambda s, m, l: losses.append(float(l)))
+      init_model=True, callback=lambda s, m, l: losses.append(float(l)),
+      device='cpu')
   assert len(losses) == STEPS and np.isfinite(losses).all()
   assert losses[-1] < losses[0]
   assert xo.shape == (3, DIM) and yo.shape == (3, 1)

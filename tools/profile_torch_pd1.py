@@ -97,7 +97,7 @@ def main():
     sys.exit('profile_torch_pd1: CUDA is not available')
   dev = torch.device('cuda', 0)
   chip_smoke.phase_device()
-  dataset, candidates = chip_smoke.make_data()
+  dataset, candidates, _ = chip_smoke.make_data()
   model = _model(dataset, args.steps, dev)
 
   kernel_route = batch_chol.batched_linv_t
