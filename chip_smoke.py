@@ -6,8 +6,8 @@ Phases, each printing its own lines; any failure raises, so the script
 exits non-zero and the final ok line is never printed:
 
   1. device: requires CUDA and prints the card's name and power limit;
-  2. build: compiles kernels K1-K4 (csrc/*.cu, sm_90a) from the checkout's
-     sources, one nvcc process each, all at once;
+  2. build: compiles all eight kernels K1-K8 (csrc/*.cu, sm_90a) from the
+     checkout's sources, one nvcc process each, all at once;
   3. K1 against its plain PyTorch version on the card: max abs error
      against the float64 plain version (bound 1e-5), NaN for a non-PD
      input, and the median time of both at the PD1 training shape;
@@ -25,7 +25,8 @@ exits non-zero and the final ok line is never printed:
   6. the large-n training path: GP.train() with config['fused_mll'] on 2
      tasks of 8192 and 5000 rows x 8-d inputs (SE kernel, constant mean,
      batch 8192, 5 Adam steps; the second task runs masked at n = 8192);
-     checks the loss trace and that K2-K4 launched once per task per step;
+     checks the loss trace, that K2-K4 launched once per task per step and
+     that K8 did not (HYPERBO_BWD_JOINT unset);
   7. objectives.neg_log_marginal_likelihood value and gradient at n = 8192
      through the kernels against the dense route in float64 (value rtol
      1e-4, max rel 5e-3 per gradient leaf), and one value and gradient at
@@ -45,7 +46,22 @@ exits non-zero and the final ok line is never printed:
      set_use_recursive + set_use_pallas_base (K7 on the 512 base blocks);
      the routes agree with cuSOLVER (NLL, partial EKL, EUC rtol 1e-4; full
      EKL rtol 1e-3: its whitened covariance amplifies float32 rounding);
-  10. one JSON line with the kernels' numbers (each with its bound from the
+  10. K8 (the joint backward) against its float64 plain version and against
+     K3 + alpha + K4 on the card, on phase 5's inputs and the float32
+     rounding of their float64 factor (max rel 5e-3 for d_x, alpha, d_sv
+     and d_da); NaN outputs for a NaN in L; the median time of K8, its
+     plain version and K3 + alpha + K4 at n = 8192;
+  11. the K8 path: phase 6's training with HYPERBO_BWD_JOINT=1 (set here
+     and restored after), which launches K2 and K8 once per task per step
+     and K3 and K4 never, and whose loss trace matches phase 6's (rtol
+     1e-4); then phase 7's n = 8192 value and gradient through K8 against
+     float64;
+  12. K5 (the Gram kernel) through gram_with_ridge, cross_gram and gram at
+     ragged shapes (70 x 70, 41 x 17, 1000 x 333) with d = 1, 4, 8 and 40,
+     all three families, against the float64 plain version (atol 2e-5 sv);
+     the median time of the kernel and its plain version at n = 8192, d = 8
+     and at 10,000 candidates x 2048 points, d = 4;
+  13. one JSON line with the kernels' numbers (each with its bound from the
      bytes and operations of its inputs, and the time of one PyTorch call
      computing the same function where there is one), then the ok line.
 
@@ -53,10 +69,12 @@ Needs one CUDA card and nvcc; imports nothing of JAX.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -78,6 +96,7 @@ L_ATOL = 5e-4          # tests/test_pallas_chol.py, the TPU kernel's bound
 VALUE_RTOL = 1e-4      # tests/test_objectives.py:313
 GRAD_MAX_REL = 5e-3    # bench.py:540, the gradient parity bound
 FUSED_TIMED_RUNS = 6   # x 2 turns = 12 timings of each
+GRAM_ATOL = 2e-5       # times sv: tests/test_pallas_gram.py:50
 
 # The EKL slice and the dense Cholesky kernels (phases 8-9).
 ALIGNED_POINTS = 1024  # the least n of K6's route; the recursion's 512 blocks
@@ -333,38 +352,52 @@ def _turns(runs, **fns):
   return {name: statistics.median(t) for name, t in times.items()}
 
 
-def fused_case(dev, n, d, kfam, count=None, sv=1.3, da=0.11, seed=0):
-  """K2, K3 and K4 on one input against their float64 plain versions on
-  the card. Returns the errors and the float32 inputs for timing."""
-  from hyperbo_tpu_torch.ops import fused_mll, mll_bwd, tri_inv
+def fused_inputs(dev, n, d, seed, sv=1.3, da=0.11):
+  """The fused path's test input: n rows (padded with masked rows to a
+  multiple of 64) of x uniform on [0, 2)^d and y standard normal, from a
+  numpy seed; (x, y, sv, da, valid) in float32 and in float64 on the card
+  (valid None when no row is padded)."""
+  from hyperbo_tpu_torch.ops import fused_mll
   rng = np.random.default_rng(seed)
   n_pad = -(-n // fused_mll.TILE) * fused_mll.TILE
   x = np.zeros((n_pad, d))
   y = np.zeros((n_pad, 1))
   x[:n] = rng.uniform(size=(n, d)) * 2.0
   y[:n] = rng.normal(size=(n, 1))
-  f32 = dict(dtype=torch.float32, device=dev)
-  f64 = dict(dtype=torch.float64, device=dev)
   valid = None
-  if count is not None or n_pad != n:
-    valid = (np.arange(n_pad) < (n if count is None else count)).astype(
-        np.float64)
-  ins = {}
-  for key, opts in (('32', f32), ('64', f64)):
-    ins[key] = (torch.tensor(x, **opts), torch.tensor(y, **opts),
+  if n_pad != n:
+    valid = (np.arange(n_pad) < n).astype(np.float64)
+  ins = []
+  for dtype in (torch.float32, torch.float64):
+    opts = dict(dtype=dtype, device=dev)
+    ins.append((torch.tensor(x, **opts), torch.tensor(y, **opts),
                 torch.tensor(sv, **opts), torch.tensor(da, **opts),
-                None if valid is None else torch.tensor(valid, **opts))
-  x32, y32, sv32, da32, v32 = ins['32']
-  x64, y64, sv64, da64, v64 = ins['64']
+                None if valid is None else torch.tensor(valid, **opts)))
+  return ins
+
+
+def input_factor(ins64, kfam):
+  """The float32 rounding of the float64 plain factor: the input on which
+  K3, K4 and K8 are each held alone against their plain versions. (cuSOLVER
+  returns a column-major result: made contiguous.)"""
+  from hyperbo_tpu_torch.ops import fused_mll
+  x64, y64, sv64, da64, v64 = ins64
+  chol64, quad64, ld64 = fused_mll.mll_fused_plain(x64, y64, sv64, da64,
+                                                   kfam, v64)
+  return chol64, quad64, ld64, chol64.float().contiguous()
+
+
+def fused_case(dev, n, d, kfam, seed=0):
+  """K2, K3 and K4 on one input against their float64 plain versions on
+  the card. Returns the errors and the float32 inputs for timing."""
+  from hyperbo_tpu_torch.ops import fused_mll, mll_bwd, tri_inv
+  ins32, ins64 = fused_inputs(dev, n, d, seed)
+  x32, y32, sv32, da32, v32 = ins32
+  x64, y64, sv64, da64, v64 = ins64
 
   chol, quad, ld = fused_mll.launch_mll_fused(x32, y32, sv32, da32, kfam,
                                               v32)
-  chol64, quad64, ld64 = fused_mll.mll_fused_plain(x64, y64, sv64, da64,
-                                                   kfam, v64)
-  # K3 and K4 on the float32 rounding of the float64 factor, so that each
-  # kernel is held alone against its plain version on the same input.
-  # (cuSOLVER and cuBLAS return column-major results: made contiguous.)
-  l_in = chol64.float().contiguous()
+  chol64, quad64, ld64, l_in = input_factor(ins64, kfam)
   t = tri_inv.launch_tri_inv(l_in)
   t64 = tri_inv.tri_inv_plain(l_in.double())
   t_in = t64.float().contiguous()
@@ -384,7 +417,7 @@ def fused_case(dev, n, d, kfam, count=None, sv=1.3, da=0.11, seed=0):
       'dsv_rel': abs(float(dsv) - float(dsv64)) / abs(float(dsv64)),
       'dda_rel': abs(float(dda) - float(dda64)) / abs(float(dda64)),
   }
-  log(f'K2-K4 n={n} d={d} {kfam}' + (' masked' if valid is not None else '')
+  log(f'K2-K4 n={n} d={d} {kfam}' + (' masked' if v32 is not None else '')
       + ': ' + ', '.join(f'{k} {v:.3e}' for k, v in errs.items()))
   bounds = (('L_abs', L_ATOL), ('quad_rel', VALUE_RTOL),
             ('logdet_rel', VALUE_RTOL), ('T_rel', GRAD_MAX_REL),
@@ -477,8 +510,10 @@ def fused_model(dtype=torch.float32, device='cpu'):
           'noise_variance': torch.tensor(-2.0, **opts)}
 
 
-def phase_fused_train(dev, card, kernels):
-  """Phase 6: GP.train() through K2-K4 at full width."""
+def train_fused(dev, kernels):
+  """GP.train() through the fused route at full width (bench.py's large-n
+  parameters). Returns the loss trace, each kernel's launches in the run,
+  the first step's and the mean later step's ms."""
   from hyperbo_tpu_torch.core import defs
   from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
   from hyperbo_tpu_torch.models import gp, kernel, mean
@@ -504,22 +539,34 @@ def phase_fused_train(dev, card, kernels):
   model.train(callback=on_step)
   launches = {name: k.launches for name, k in kernels.items()}
   trace = torch.stack(losses).cpu().numpy()
-  log(f'fused training loss: {" ".join(f"{v:.4f}" for v in trace)}')
   if len(trace) != FUSED_STEPS or not np.isfinite(trace).all():
     raise AssertionError(f'fused loss trace not finite or short: {trace}')
   if not trace[-1] < trace[0]:
     raise AssertionError('fused training loss did not decrease')
-  want = FUSED_STEPS * len(FUSED_TASKS)
-  for name, count in launches.items():
-    if count < want:
-      raise AssertionError(f'{name} launched {count} times, want {want}')
   first_ms = (marks[1] - t0) * 1e3
   step_ms = (marks[FUSED_STEPS] - marks[1]) * 1e3 / (FUSED_STEPS - 1)
+  return trace, launches, first_ms, step_ms
+
+
+def check_launches(launches, want):
+  for name, count in launches.items():
+    if count != want[name]:
+      raise AssertionError(f'{name} launched {count} times, want '
+                           f'{want[name]}')
+
+
+def phase_fused_train(dev, card, kernels):
+  """Phase 6: GP.train() through K2-K4 at full width; K8 stays off."""
+  trace, launches, first_ms, step_ms = train_fused(dev, kernels)
+  log(f'fused training loss: {" ".join(f"{v:.4f}" for v in trace)}')
+  want = FUSED_STEPS * len(FUSED_TASKS)
+  check_launches(launches, {'fused_mll': want, 'tri_inv': want,
+                            'mll_bwd': want, 'mll_bwd_joint': 0})
   log(f'fused launches in the main path: {launches}')
   log(f'large-n training (tasks of 8192 and 5000 rows x {FUSED_DIM}, '
       f'fused_mll): {step_ms:.3f} ms/step (first step {first_ms:.3f} ms) '
       f'[{card}]')
-  return launches
+  return launches, trace
 
 
 def _value_and_grad(dataset, dtype, dev, fused):
@@ -546,8 +593,9 @@ def _value_and_grad(dataset, dtype, dev, fused):
   return float(val.detach()), [g.double().cpu() for g in grads], ms
 
 
-def phase_fused_objective(dev, card):
-  """Phase 7: value and gradient at n = 8192 against float64, and n = 16384."""
+def objective_parity(dev, card, route):
+  """Value and gradient at n = 8192 through the fused route against the
+  dense route in float64 (value rtol 1e-4, max rel 5e-3 per leaf)."""
   rng = np.random.default_rng(6)
   data = {'t': (rng.uniform(size=(8192, FUSED_DIM)),
                 rng.normal(size=(8192, 1)))}
@@ -556,12 +604,18 @@ def phase_fused_objective(dev, card):
   val64, grads64, ms64 = _value_and_grad(data, torch.float64, dev, False)
   rel = abs(val - val64) / abs(val64)
   leaf_rel = [_rel(a, b) for a, b in zip(grads, grads64)]
-  log(f'n=8192 value+grad through K2-K4: {ms:.3f} ms; value rel err '
+  log(f'n=8192 value+grad through {route}: {ms:.3f} ms; value rel err '
       f'{rel:.3e}; gradient max rel per leaf '
       f'{" ".join(f"{v:.3e}" for v in leaf_rel)} (float64 dense: '
       f'{ms64:.3f} ms) [{card}]')
   if not (rel <= VALUE_RTOL and max(leaf_rel) <= GRAD_MAX_REL):
     raise AssertionError(f'n=8192 parity: value {rel}, grads {leaf_rel}')
+  return rng
+
+
+def phase_fused_objective(dev, card):
+  """Phase 7: value and gradient at n = 8192 against float64, and n = 16384."""
+  rng = objective_parity(dev, card, 'K2-K4')
   data = {'t': (rng.uniform(size=(16384, FUSED_DIM)),
                 rng.normal(size=(16384, 1)))}
   val, grads, ms = _value_and_grad(data, torch.float32, dev, True)
@@ -571,6 +625,149 @@ def phase_fused_objective(dev, card):
   log(f'n=16384 value+grad through K2-K4: {ms:.3f} ms (first call), value '
       f'{val:.4f} [{card}]')
   return ms
+
+
+def joint_route(l, x, delta, sv, kfam, valid=None):
+  """The backward K8 replaces, on the card: K3, alpha, K4, then d_x."""
+  from hyperbo_tpu_torch.ops import mll_bwd, tri_inv
+  t = tri_inv.launch_tri_inv(l)
+  alpha = tri_inv.alpha_from_inverse(t, delta).contiguous()
+  p, dsv, dda = mll_bwd.launch_mll_bwd(t, x, alpha, sv, kfam, valid)
+  d = x.shape[1]
+  return 2.0 * (p[:, :d] - p[:, d:] * x), alpha, dsv, dda
+
+
+def phase_joint_kernel(dev):
+  """Phase 10: K8 against its float64 plain version and against K3 +
+  alpha + K4 on the same float32 factor, NaN for a NaN factor, timing at
+  n = 8192."""
+  from hyperbo_tpu_torch.ops import bwd_joint
+  names = ('d_x', 'alpha', 'dsv_raw', 'd_da')
+  worst = 0.0
+  for n, d, kfam, seed in ((512, 4, 'se', 1), (700, 3, 'matern32', 2),
+                           (8192, FUSED_DIM, 'se', 3)):
+    ins32, ins64 = fused_inputs(dev, n, d, seed)
+    x32, y32, sv32, _, v32 = ins32
+    x64, y64, sv64, _, v64 = ins64
+    l_in = input_factor(ins64, kfam)[3]
+    got = bwd_joint.launch_mll_bwd_joint(l_in, x32, y32, sv32, kfam, v32)
+    want = bwd_joint.mll_bwd_joint_plain(l_in.double(), x64, y64, sv64, kfam,
+                                         v64)
+    route = joint_route(l_in, x32, y32, sv32, kfam, v32)
+    torch.cuda.synchronize()
+    rel = {k: _rel(a, b) for k, a, b in zip(names, got, want)}
+    rel_route = {k: _rel(a, b) for k, a, b in zip(names, got, route)}
+    worst = max([worst] + [float((a.double() - b).abs().max())
+                           for a, b in zip(got[:2], want[:2])])
+    log(f'K8 n={n} d={d} {kfam}' + (' masked' if v32 is not None else '') +
+        ': max rel vs float64 ' +
+        ', '.join(f'{k} {v:.3e}' for k, v in rel.items()) +
+        '; vs K3 + alpha + K4 ' +
+        ', '.join(f'{k} {v:.3e}' for k, v in rel_route.items()))
+    for key in names:
+      if not (rel[key] <= GRAD_MAX_REL and rel_route[key] <= GRAD_MAX_REL):
+        raise AssertionError(f'K8 {key} at n={n} {kfam}: {rel[key]} vs '
+                             f'float64, {rel_route[key]} vs K3 + K4')
+    if n == 512:
+      bad = l_in.clone()
+      bad[-1, 0] = float('nan')
+      outs = bwd_joint.launch_mll_bwd_joint(bad, x32, y32, sv32, kfam, v32)
+      if not all(bool(torch.isnan(o).all()) for o in outs):
+        raise AssertionError('K8 must give NaN outputs for a NaN factor')
+      log('K8 NaN in L: NaN outputs')
+  ms = _turns(
+      FUSED_TIMED_RUNS,
+      plain=lambda: bwd_joint.mll_bwd_joint_plain(l_in, x32, y32, sv32, kfam),
+      kernel=lambda: bwd_joint.launch_mll_bwd_joint(l_in, x32, y32, sv32,
+                                                    kfam),
+      route=lambda: joint_route(l_in, x32, y32, sv32, kfam))
+  log(f'mll_bwd_joint time at n=8192 (median of {2 * FUSED_TIMED_RUNS} '
+      f'each): kernel {ms["kernel"]:.3f} ms, plain {ms["plain"]:.3f} ms, '
+      f'K3 + alpha + K4 {ms["route"]:.3f} ms')
+  return worst, ms
+
+
+def phase_joint_path(dev, card, kernels, trace_k3k4):
+  """Phase 11: phase 6's training and phase 7's n = 8192 value+grad with
+  HYPERBO_BWD_JOINT=1 (the environment is restored after it): K8 once per
+  task per step, K3 and K4 never."""
+  with mock.patch.dict(os.environ, {'HYPERBO_BWD_JOINT': '1'}):
+    trace, launches, first_ms, step_ms = train_fused(dev, kernels)
+    log(f'fused training loss through K8: '
+        f'{" ".join(f"{v:.4f}" for v in trace)}')
+    want = FUSED_STEPS * len(FUSED_TASKS)
+    check_launches(launches, {'fused_mll': want, 'tri_inv': 0, 'mll_bwd': 0,
+                              'mll_bwd_joint': want})
+    log(f'K8 path launches: {launches}')
+    rel = np.abs(trace - trace_k3k4) / np.abs(trace_k3k4)
+    log(f'large-n training through K8: {step_ms:.3f} ms/step (first step '
+        f'{first_ms:.3f} ms); loss trace max rel diff vs K3 + K4 '
+        f'{rel.max():.3e} [{card}]')
+    if not rel.max() <= STEP_LOSS_RTOL:
+      raise AssertionError(f'K8 loss trace differs from K3 + K4: {rel}')
+    objective_parity(dev, card, 'K2 + K8')
+  return launches
+
+
+def phase_gram(dev, dataset, candidates):
+  """Phase 12: K5 through its entry points (gram_with_ridge, cross_gram,
+  gram) at ragged shapes against the float64 plain version, then timing of
+  the kernel and its plain version at the large-n Gram and the PD1
+  candidates' cross-Gram."""
+  from hyperbo_tpu_torch.ops import fused_gram
+  rng = np.random.default_rng(9)
+  sv, ridge = 0.9, 0.05
+  # Each entry point on inputs a (70, 41, 17, 1000 and 333 rows, uniform
+  # on [0, 1)^d as the repo's BO inputs are) and lengthscales s.
+  calls = (
+      lambda a, s, k: fused_gram.gram_with_ridge(a[0], s, sv, ridge, k),
+      lambda a, s, k: fused_gram.cross_gram(a[1], a[2], s, sv, k),
+      lambda a, s, k: fused_gram.cross_gram(a[3], a[4], s, sv, k),
+      lambda a, s, k: fused_gram.gram(a[3] / s, a[4] / s, sv, ridge, k))
+  cases = []
+  for d in (1, 4, 8, 40):
+    xs = [torch.tensor(rng.uniform(size=(m, d)), dtype=torch.float32)
+          for m in (70, 41, 17, 1000, 333)]
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), dtype=torch.float32)
+    cases += [(call, xs, ls, kind) for kind in ('se', 'matern32', 'matern52')
+              for call in calls]
+  fused_gram.KERNEL.launches = 0
+  got = [call([x.to(dev) for x in xs], ls.to(dev), kind)
+         for call, xs, ls, kind in cases]
+  torch.cuda.synchronize()
+  launches = fused_gram.KERNEL.launches
+  worst = 0.0
+  for out, (call, xs, ls, kind) in zip(got, cases):
+    want = call([x.double() for x in xs], ls.double(), kind)
+    err = float((out.cpu().double() - want).abs().max())
+    worst = max(worst, err)
+    if out.shape != want.shape or not err <= GRAM_ATOL * sv:
+      raise AssertionError(f'K5 {kind} d={ls.shape[0]} {tuple(out.shape)}: '
+                           f'max abs err {err} > {GRAM_ATOL * sv}')
+  if launches != len(cases):
+    raise AssertionError(f'K5 launched {launches} times in {len(cases)} '
+                         'calls')
+  log(f'K5: {len(cases)} calls (gram_with_ridge 70 x 70, cross_gram 41 x 17 '
+      f'and 1000 x 333, gram 1000 x 333; d = 1, 4, 8, 40; three families), '
+      f'{launches} launches, max abs err vs float64 {worst:.3e}')
+
+  xb = torch.tensor(fused_data()['a'][0], device=dev) / 0.5
+  xb = xb - xb.mean(dim=0, keepdim=True)
+  c1 = torch.tensor(candidates[0], device=dev)
+  c2 = torch.tensor(dataset['workload0'][0], device=dev)
+  center = torch.cat([c1, c2]).mean(dim=0, keepdim=True)
+  c1, c2 = c1 - center, c2 - center
+  times = {}
+  for name, a, b, add in (('gram_with_ridge', xb, xb, True),
+                          ('cross_gram', c1, c2, False)):
+    times[name] = _turns(
+        DENSE_TIMED_RUNS,
+        plain=lambda: fused_gram.gram_plain(a, b, sv, ridge, 'se', add),
+        kernel=lambda: fused_gram.launch_gram(a, b, sv, ridge, 'se', add))
+    log(f'K5 {name} time at {tuple(a.shape)} x {tuple(b.shape)} (median of '
+        f'{2 * DENSE_TIMED_RUNS} each): kernel {times[name]["kernel"]:.4f} '
+        f'ms, plain {times[name]["plain"]:.4f} ms')
+  return worst, launches, times
 
 
 def bound(flops, nbytes):
@@ -764,22 +961,25 @@ def phase_ekl(dataset, dev, card, kernels):
 
 def main():
   # The port first: without the repo's sources there is nothing to run.
-  from hyperbo_tpu_torch.ops import (batch_chol, chol_hbm, chol_panel,
-                                     fused_mll, mll_bwd, tri_inv)
+  from hyperbo_tpu_torch.ops import (batch_chol, bwd_joint, chol_hbm,
+                                     chol_panel, fused_gram, fused_mll,
+                                     mll_bwd, tri_inv)
   card = phase_device()
   dev = torch.device('cuda', 0)
   fused_kernels = {'fused_mll': fused_mll.KERNEL, 'tri_inv': tri_inv.KERNEL,
                    'mll_bwd': mll_bwd.KERNEL}
+  # The large-n training path's kernels, counted on both of its backwards.
+  path_kernels = dict(fused_kernels, mll_bwd_joint=bwd_joint.KERNEL)
   dense_kernels = {'chol_panel': chol_panel.KERNEL,
                    'chol_hbm': chol_hbm.KERNEL}
-  phase_build([batch_chol.KERNEL, *fused_kernels.values(),
-               *dense_kernels.values()])
+  phase_build([batch_chol.KERNEL, *path_kernels.values(),
+               *dense_kernels.values(), fused_gram.KERNEL])
   err, k1_times = phase_k1(batch_chol, dev)
   dataset, candidates, aligned = make_data()
   phase_step_parity(dataset, dev)
   launches = phase_slice(dataset, candidates, batch_chol, dev, card)
   worst, times = phase_fused_kernels(dev)
-  fused_launches = phase_fused_train(dev, card, fused_kernels)
+  fused_launches, trace_k3k4 = phase_fused_train(dev, card, path_kernels)
   phase_fused_objective(dev, card)
   dense_worst, dense_times = phase_dense_kernels(dev)
   ekl_data = dict(dataset, aligned=aligned)
@@ -787,6 +987,10 @@ def main():
   ekl_launches = phase_ekl(ekl_data, dev, card,
                            {'batched_linv_t': batch_chol.KERNEL,
                             **dense_kernels})
+  joint_worst, joint_times = phase_joint_kernel(dev)
+  joint_launches = phase_joint_path(dev, card, path_kernels, trace_k3k4)
+  gram_worst, gram_launches, gram_times = phase_gram(dev, dataset,
+                                                     candidates)
 
   # Work of each kernel at the shapes timed above: minimal float32
   # operations, and bytes of its inputs read and outputs written once.
@@ -806,6 +1010,13 @@ def main():
       # Cholesky n^3 / 3 of one matrix; A in, L out.
       'chol_panel': (512**3 / 3, 8 * 512 * 512),
       'chol_hbm': (ALIGNED_POINTS**3 / 3, 8 * ALIGNED_POINTS**2),
+      # L^{-1} n^3 / 3, T^T T on the lower half n^3 / 3, u = T delta and
+      # alpha = T^T u 2 n^2, G, W and P 2 n^2 (d + 1); L, x, delta in, P and
+      # alpha out.
+      'mll_bwd_joint': (2 * n**3 / 3 + 2 * n * n + 2 * n * n * (d + 1),
+                        4 * (n * n + n * d + n + n * (d + 1) + n)),
+      # The large-n Gram: n^2 (2 d + 3); x in twice, K out.
+      'gram': (n * n * (2 * d + 3), 4 * (n * n + 2 * n * d)),
   }
   # The float32 matmul rate the card reaches, beside the data sheet's.
   x = torch.randn((n, n), device=dev)
@@ -859,6 +1070,28 @@ def main():
         'plain_ms': dense_times[name]['plain'],
         'library_ms': dense_times[name]['library'],
     })
+  rows.append({
+      'name': 'mll_bwd_joint',
+      'route': 'cuda',
+      'source': 'hyperbo_tpu_torch/csrc/bwd_joint.cu',
+      'replaces': 'hyperbo_tpu/ops/pallas_bwd_joint.py:272',
+      'launches': joint_launches['mll_bwd_joint'],
+      'max_abs_err': joint_worst,
+      'ms': joint_times['kernel'],
+      'plain_ms': joint_times['plain'],
+      'library_ms': None,
+  })
+  rows.append({
+      'name': 'gram',
+      'route': 'cuda',
+      'source': 'hyperbo_tpu_torch/csrc/gram.cu',
+      'replaces': 'hyperbo_tpu/ops/pallas_gram.py:119',
+      'launches': gram_launches,
+      'max_abs_err': gram_worst,
+      'ms': gram_times['gram_with_ridge']['kernel'],
+      'plain_ms': gram_times['gram_with_ridge']['plain'],
+      'library_ms': None,
+  })
   for row in rows:
     row['bound_ms'], row['bound_by'] = bound(*work[row['name']])
   print(json.dumps({'kernels': rows}), flush=True)

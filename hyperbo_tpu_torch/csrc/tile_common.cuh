@@ -1,5 +1,6 @@
 // Device code shared by the fused-NLL kernels (fused_mll.cu, tri_inv.cu,
-// mll_bwd.cu) and the blocked Cholesky (chol_core.cuh, chol_hbm.cu): the
+// mll_bwd.cu, bwd_core.cuh, bwd_joint.cu), the blocked Cholesky
+// (chol_core.cuh, chol_hbm.cu) and the Gram kernel (gram.cu): the
 // 64 x 64 tile geometry, the squared-distance tile and the
 // kernel-family transforms of hyperbo_tpu/ops/pallas_mll.py
 // (_gram_transform) and hyperbo_tpu/ops/pallas_mll_bwd.py (_km_nm).
@@ -69,6 +70,60 @@ __device__ __forceinline__ void tile_sqdist(const float* __restrict__ x,
       const int f = idx % kFeatChunk;
       xi[r * kFeatLd + f] = f < fw ? x[(row0 + r) * d + f0 + f] : 0.0f;
       xj[r * kFeatLd + f] = f < fw ? x[(col0 + r) * d + f0 + f] : 0.0f;
+    }
+    __syncthreads();
+    for (int f = 0; f < fw; ++f) {
+      float a[4], b[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[q] = xi[(ty + 16 * q) * kFeatLd + f];
+        b[q] = xj[(tx + 16 * q) * kFeatLd + f];
+        sqr[q] = fmaf(a[q], a[q], sqr[q]);
+        sqc[q] = fmaf(b[q], b[q], sqc[q]);
+      }
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dot[p][q] = fmaf(a[p], b[q], dot[p][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      r2[p][q] = fmaxf(sqr[p] + sqc[q] - 2.0f * dot[p][q], 0.0f);
+    }
+  }
+}
+
+// tile_sqdist between two inputs: rows row0 + ty + 16 a of x1 (n1, d)
+// against rows col0 + tx + 16 b of x2 (n2, d). Rows past n1 or n2 load as
+// zeros (a ragged edge tile; the caller stores none of their entries).
+__device__ __forceinline__ void tile_sqdist2(const float* __restrict__ x1,
+                                             long long n1,
+                                             const float* __restrict__ x2,
+                                             long long n2, int d,
+                                             long long row0, long long col0,
+                                             float* xs, float r2[4][4]) {
+  const int tid = threadIdx.x;
+  const int ty = tid / 16;
+  const int tx = tid % 16;
+  float* xi = xs;
+  float* xj = xs + kTile * kFeatLd;
+  float dot[4][4] = {};
+  float sqr[4] = {};
+  float sqc[4] = {};
+  for (int f0 = 0; f0 < d; f0 += kFeatChunk) {
+    const int fw = min(kFeatChunk, d - f0);
+    __syncthreads();
+    for (int idx = tid; idx < kTile * kFeatChunk; idx += kThreads) {
+      const int r = idx / kFeatChunk;
+      const int f = idx % kFeatChunk;
+      xi[r * kFeatLd + f] =
+          f < fw && row0 + r < n1 ? x1[(row0 + r) * d + f0 + f] : 0.0f;
+      xj[r * kFeatLd + f] =
+          f < fw && col0 + r < n2 ? x2[(col0 + r) * d + f0 + f] : 0.0f;
     }
     __syncthreads();
     for (int f = 0; f < fw; ++f) {

@@ -17,7 +17,9 @@
 // slab of one panel j and walks down its row tiles i in order; the T_kj it
 // reads back are the ones it wrote itself (read through L2 with __ldcg).
 // Blocks are numbered heaviest first (panel 0 has the longest chain).
-// A NaN anywhere in L reaches D and then every T_ij of the panel.
+// A NaN anywhere in L reaches D and then every T_ij of the panel. The
+// block's body is bwd_core.cuh's tri_inv_slab, which the joint backward
+// (bwd_joint.cu, kernel K8) runs as its first phase.
 //
 // What bounds it on an H100. Panel 0's chain is (n/64)^2/2 dependent tile
 // products run by one block per slab: at n = 8192 that is 8128 steps of
@@ -29,102 +31,20 @@
 
 #include <cuda_runtime.h>
 
+#include "bwd_core.cuh"
 #include "tile_common.cuh"
 
 namespace {
 
 using namespace hyperbo;
 
-constexpr int kSlab = 32;
-constexpr int kSlabLd = kSlab + 1;
-constexpr int kSlabs = kTile / kSlab;
-
-// Thread layout of a 64 x 32 slab: (ty, tx) = (tid / 8, tid % 8) owns rows
-// ty and ty + 32, columns tx + 8 b (b < 4).
+// One block per 32-column slab (bwd_core.cuh tri_inv_slab).
 __global__ void __launch_bounds__(kThreads)
 tri_inv_slabs(const float* __restrict__ l, const float* __restrict__ dinv,
               float* t, int n) {
   __shared__ float ls[kTile * kLd];
   __shared__ float ts[kTile * kSlabLd];
-  const int nb = n / kTile;
-  const int j = blockIdx.x / kSlabs;
-  const long long col0 = static_cast<long long>(j) * kTile +
-                         (blockIdx.x % kSlabs) * kSlab;
-  const int dcol0 = (blockIdx.x % kSlabs) * kSlab;
-  const int tid = threadIdx.x;
-  const int ty = tid / 8;
-  const int tx = tid % 8;
-
-  const long long top = static_cast<long long>(j) * kTile;
-  for (long long idx = tid; idx < top * kSlab; idx += kThreads) {
-    t[(idx / kSlab) * n + col0 + idx % kSlab] = 0.0f;
-  }
-  const float* dj = dinv + static_cast<long long>(j) * kTile * kTile;
-  for (int idx = tid; idx < kTile * kSlab; idx += kThreads) {
-    const int r = idx / kSlab;
-    const int c = idx % kSlab;
-    t[(top + r) * n + col0 + c] = dj[r * kTile + dcol0 + c];
-  }
-
-  for (int i = j + 1; i < nb; ++i) {
-    const long long rowi = static_cast<long long>(i) * kTile;
-    float acc[2][4] = {};
-    for (int k = j; k < i; ++k) {
-      const long long rowk = static_cast<long long>(k) * kTile;
-      // The previous step's reads are done, and this block's writes of
-      // T_kj (k < i) are visible to all of its threads.
-      __syncthreads();
-      for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
-        const int r = idx / kTile;
-        const int c = idx % kTile;
-        ls[r * kLd + c] = l[(rowi + r) * n + rowk + c];
-      }
-      for (int idx = tid; idx < kTile * kSlab; idx += kThreads) {
-        const int r = idx / kSlab;
-        const int c = idx % kSlab;
-        ts[r * kSlabLd + c] = __ldcg(t + (rowk + r) * n + col0 + c);
-      }
-      __syncthreads();
-      for (int m = 0; m < kTile; ++m) {
-        const float u0 = ls[ty * kLd + m];
-        const float u1 = ls[(ty + 32) * kLd + m];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float v = ts[m * kSlabLd + tx + 8 * q];
-          acc[0][q] = fmaf(u0, v, acc[0][q]);
-          acc[1][q] = fmaf(u1, v, acc[1][q]);
-        }
-      }
-    }
-    // T_ij = -D_i acc: the sum goes to ts, D_i to ls.
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      ts[ty * kSlabLd + tx + 8 * q] = acc[0][q];
-      ts[(ty + 32) * kSlabLd + tx + 8 * q] = acc[1][q];
-    }
-    const float* di = dinv + static_cast<long long>(i) * kTile * kTile;
-    for (int idx = tid; idx < kTile * kTile; idx += kThreads) {
-      ls[(idx / kTile) * kLd + idx % kTile] = di[idx];
-    }
-    __syncthreads();
-    float out[2][4] = {};
-    for (int m = 0; m < kTile; ++m) {
-      const float u0 = ls[ty * kLd + m];
-      const float u1 = ls[(ty + 32) * kLd + m];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float v = ts[m * kSlabLd + tx + 8 * q];
-        out[0][q] = fmaf(u0, v, out[0][q]);
-        out[1][q] = fmaf(u1, v, out[1][q]);
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      t[(rowi + ty) * n + col0 + tx + 8 * q] = -out[0][q];
-      t[(rowi + ty + 32) * n + col0 + tx + 8 * q] = -out[1][q];
-    }
-  }
+  tri_inv_slab<false>(l, dinv, t, n, blockIdx.x, ls, ts, nullptr, nullptr);
 }
 
 }  // namespace

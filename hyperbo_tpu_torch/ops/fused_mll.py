@@ -17,14 +17,20 @@ K4 (ops/mll_bwd), and
     d_x = 2 [(W x) - (W 1) o x],   d_delta = alpha,
     d_sv = d_sv_raw / sv,          d_da = tr G.
 
+With HYPERBO_BWD_JOINT=1 in the environment (read at each backward) and
+d + 2 <= 127 (the JAX package's condition), the backward instead computes
+all of this in one call of ops/bwd_joint (kernel K8), as the JAX package's
+_se_core_bwd does under the same variable. Unset or '0' leaves it off; any
+other value raises.
+
 Every wrapper dispatches on the tensor's device: a CUDA tensor launches the
 hand-written Hopper kernel (csrc/fused_mll.cu, csrc/tri_inv.cu,
-csrc/mll_bwd.cu) or raises; a CPU tensor runs the plain PyTorch version.
-There is no fallback from one to the other, and no switch besides the
-device: config['fused_mll'] takes True, False or None, and the JAX
-package's 'interpret' raises. The Mosaic tuning knobs of the JAX module
-(block, half, group, pivot modes, the HYPERBO_* variables, the 128-lane
-feature limit) have no counterpart.
+csrc/mll_bwd.cu, csrc/bwd_joint.cu) or raises; a CPU tensor runs the plain
+PyTorch version. There is no fallback from one to the other, and no switch
+besides the device and HYPERBO_BWD_JOINT: config['fused_mll'] takes True,
+False or None, and the JAX package's 'interpret' raises. The Mosaic tuning
+knobs of the JAX module (block, half, group, pivot modes, the other
+HYPERBO_* variables, the 128-lane feature limit) have no counterpart.
 
 Padded rows (a `valid` mask) are exact: the kernels zero every Gram entry
 touching a padded row and keep its diagonal at da, and the wrapper removes
@@ -36,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -43,6 +50,7 @@ import torch
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.models import basis as bf
 from hyperbo_tpu_torch.ops import _build
+from hyperbo_tpu_torch.ops import bwd_joint
 from hyperbo_tpu_torch.ops import chol as chol_ops
 from hyperbo_tpu_torch.ops import mll_bwd
 from hyperbo_tpu_torch.ops import tri_inv as tri_inv_ops
@@ -155,6 +163,17 @@ def _poison_non_pd(chol, nll):
   return torch.where(bad, nan, chol), torch.where(bad, nan, nll)
 
 
+def bwd_joint_requested() -> bool:
+  """Whether HYPERBO_BWD_JOINT asks for the joint backward (kernel K8):
+  '1' on, unset or '0' off; any other value raises."""
+  flag = os.environ.get('HYPERBO_BWD_JOINT', '0')
+  if flag not in ('0', '1'):
+    raise ValueError(f'HYPERBO_BWD_JOINT = {flag!r}: the port takes 1 (the '
+                     'joint backward, kernel K8) or 0 / unset (K3, alpha '
+                     'and K4).')
+  return flag == '1'
+
+
 class _FusedNllCore(torch.autograd.Function):
   """nll_core(x_scaled, delta, sv, da[, valid]) = quad / 2 + logdet_half,
   with the closed-form backward of pallas_mll._se_core_bwd."""
@@ -170,12 +189,16 @@ class _FusedNllCore(torch.autograd.Function):
   @staticmethod
   def backward(ctx, g):
     chol, x_scaled, delta, sv, valid = ctx.saved_tensors
-    t = tri_inv_ops.tri_inv(chol)
-    alpha = tri_inv_ops.alpha_from_inverse(t, delta)
-    p, dsv_raw, d_da = mll_bwd.mll_bwd_fused(t, x_scaled, alpha, sv,
-                                             ctx.kfam, valid)
     d = x_scaled.shape[1]
-    d_x = 2.0 * (p[:, :d] - p[:, d:] * x_scaled)
+    if bwd_joint_requested() and d + 2 <= bwd_joint.ULANE:
+      d_x, alpha, dsv_raw, d_da = bwd_joint.mll_bwd_joint(
+          chol, x_scaled, delta, sv, ctx.kfam, valid)
+    else:
+      t = tri_inv_ops.tri_inv(chol)
+      alpha = tri_inv_ops.alpha_from_inverse(t, delta)
+      p, dsv_raw, d_da = mll_bwd.mll_bwd_fused(t, x_scaled, alpha, sv,
+                                               ctx.kfam, valid)
+      d_x = 2.0 * (p[:, :d] - p[:, d:] * x_scaled)
     return g * d_x, g * alpha, g * dsv_raw / sv, g * d_da, None, None
 
 

@@ -17,7 +17,11 @@ the gradient parity bound). The dense-Cholesky kernels K6 and K7 against
 their float64 plain versions: atol 5e-4 (tests/test_pallas_chol.py); the
 model evaluation through them within rtol 1e-4 of the cuSOLVER route for
 the NLL and the partial EKL, and 1e-3 for the full EKL, whose whitened
-covariance amplifies the factorizations' float32 rounding.
+covariance amplifies the factorizations' float32 rounding. The joint
+backward K8 against its float64 plain version and against the K3 + alpha +
+K4 route on the card: d_x, alpha and the two scalars within 5e-3 of their
+largest entry (the gradient parity bound). The Gram kernel K5 against its
+float64 plain version within atol 2e-5 sv (tests/test_pallas_gram.py).
 """
 
 import numpy as np
@@ -29,9 +33,11 @@ from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
 from hyperbo_tpu_torch.models import gp, kernel, mean
 from hyperbo_tpu_torch.ops import batch_chol
+from hyperbo_tpu_torch.ops import bwd_joint
 from hyperbo_tpu_torch.ops import chol as chol_ops
 from hyperbo_tpu_torch.ops import chol_hbm
 from hyperbo_tpu_torch.ops import chol_panel
+from hyperbo_tpu_torch.ops import fused_gram
 from hyperbo_tpu_torch.ops import fused_mll
 from hyperbo_tpu_torch.ops import mll_bwd
 from hyperbo_tpu_torch.ops import tri_inv
@@ -314,3 +320,99 @@ def test_stats_runs_through_the_dense_cholesky_kernels(cuda_device):
     np.testing.assert_allclose(got[0], want[0], rtol=1e-4)
     np.testing.assert_allclose(got[1], want[1], rtol=1e-3)
     np.testing.assert_allclose(got[2:], want[2:], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,d,n_valid,kfam', [(512, 4, 512, 'se'),
+                                              (704, 3, 700, 'matern32')])
+def test_joint_backward_matches_plain_and_route(cuda_device, n, d, n_valid,
+                                                kfam):
+  """K8 on the float32 rounding of the float64 factor, against its float64
+  plain version and against K3 + alpha + K4 on the same input: one launch,
+  the same adjoints; a NaN in L gives NaN adjoints."""
+  x, y, sv, da, v = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                  torch.float32)
+  x64, y64, sv64, da64, v64 = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                            torch.float64)
+  chol64, _, _ = fused_mll.mll_fused_plain(x64, y64, sv64, da64, kfam, v64)
+  l_in = chol64.float().contiguous()
+  before = bwd_joint.KERNEL.launches
+  got = bwd_joint.mll_bwd_joint(l_in, x, y, sv, kfam, v)
+  torch.cuda.synchronize()
+  assert bwd_joint.KERNEL.launches == before + 1
+  want = bwd_joint.mll_bwd_joint_plain(l_in.double(), x64, y64, sv64, kfam,
+                                       v64)
+  t = tri_inv.tri_inv(l_in)
+  alpha = tri_inv.alpha_from_inverse(t, y).contiguous()
+  p, dsv, dda = mll_bwd.mll_bwd_fused(t, x, alpha, sv, kfam, v)
+  route = (2.0 * (p[:, :d] - p[:, d:] * x), alpha, dsv, dda)
+  for a, b, c in zip(got, want, route):
+    assert _max_rel(a, b) <= 5e-3
+    assert _max_rel(a, c) <= 5e-3
+  bad = l_in.clone()
+  bad[-1, 0] = float('nan')
+  for out in bwd_joint.mll_bwd_joint(bad, x, y, sv, kfam, v):
+    assert bool(torch.isnan(out).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['se', 'matern32', 'matern52'])
+def test_gram_kernel_matches_plain(cuda_device, kind):
+  """K5 through its three entry points at ragged shapes and d up to 40 (two
+  feature chunks), against the float64 plain version: one launch each, the
+  (n1, n2) shape exactly."""
+  rng = np.random.default_rng(12)
+  sv, ridge = 0.9, 0.05
+  for n1, n2, d in ((70, 70, 4), (41, 17, 1), (1000, 333, 40)):
+    x1 = torch.tensor(rng.normal(size=(n1, d)), dtype=torch.float32)
+    x2 = torch.tensor(rng.normal(size=(n2, d)), dtype=torch.float32)
+    ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), dtype=torch.float32)
+    calls = [
+        lambda a, b, s: fused_gram.cross_gram(a, b, s, sv, kind),
+        lambda a, b, s: fused_gram.gram(a / s, b / s, sv, ridge, kind),
+    ]
+    if n1 == n2:
+      calls.append(lambda a, b, s: fused_gram.gram_with_ridge(a, s, sv, ridge,
+                                                              kind))
+    for call in calls:
+      before = fused_gram.KERNEL.launches
+      got = call(x1.to(cuda_device), x2.to(cuda_device), ls.to(cuda_device))
+      torch.cuda.synchronize()
+      assert fused_gram.KERNEL.launches == before + 1
+      assert got.shape == (n1, n2)
+      want = call(x1.double(), x2.double(), ls.double())
+      np.testing.assert_allclose(got.cpu().double().numpy(), want.numpy(),
+                                 atol=2e-5 * sv)
+
+
+@pytest.mark.cuda
+def test_fused_training_with_the_joint_switch(cuda_device, monkeypatch):
+  """GP.train with config['fused_mll'] and HYPERBO_BWD_JOINT=1 launches K2
+  and K8 once per task per step and K3 and K4 never, and its loss trace is
+  the one without the switch."""
+  steps = 3
+  rng = np.random.default_rng(8)
+  data = {i: (rng.uniform(size=(n, 3)).astype(np.float32),
+              rng.normal(size=(n, 1)).astype(np.float32))
+          for i, n in enumerate((600, 530))}
+  modules = (fused_mll, tri_inv, mll_bwd, bwd_joint)
+  traces, counts = [], []
+  for flag in ('0', '1'):
+    monkeypatch.setenv('HYPERBO_BWD_JOINT', flag)
+    model = gp.GP(data, mean.constant, kernel.squared_exponential,
+                  defs.GPParams(
+                      model={'constant': 0., 'lengthscale': 0.,
+                             'signal_variance': 0., 'noise_variance': -2.},
+                      config={'method': 'adam', 'learning_rate': 1e-2,
+                              'max_training_step': steps,
+                              'batch_size': 1024, 'objective': 'nll',
+                              'fused_mll': True, 'checkpoint_every': 1}),
+                  DEFAULT_WARP_FUNC, device=cuda_device)
+    model.initialize_params(torch.Generator().manual_seed(0))
+    before = [m.KERNEL.launches for m in modules]
+    losses = []
+    model.train(callback=lambda s, m, l: losses.append(float(l)))
+    traces.append(losses)
+    counts.append([m.KERNEL.launches - b for m, b in zip(modules, before)])
+  assert counts == [[steps * 2] * 3 + [0], [steps * 2, 0, 0, steps * 2]]
+  np.testing.assert_allclose(traces[1], traces[0], rtol=1e-4)
