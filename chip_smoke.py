@@ -19,9 +19,11 @@ exits non-zero and the final ok line is never printed:
      with the CPU (plain version) from the same parameters and subsample;
   5. K2, K3 and K4 (the fused large-n NLL: forward, triangular inverse,
      backward) against their plain versions in float64 on the card, at
-     n = 512 (SE, d = 4), n = 700 (Matern-3/2, masked, padded to 704) and
-     n = 8192 (SE, d = 8); NaN for a non-PD input; the median time of each
-     kernel and its plain version at n = 8192;
+     n = 512 (SE, d = 4), n = 700 (Matern-3/2, masked, padded to 704),
+     n = 5000 (SE, d = 8, masked, padded to 5056: 79 tiles, the ragged
+     level schedule of K3) and n = 8192 (SE, d = 8); two K3 calls at
+     n = 8192 bitwise equal; NaN for a non-PD input; the median time of
+     each kernel and its plain version at n = 8192;
   6. the large-n training path: GP.train() with config['fused_mll'] on 2
      tasks of 8192 and 5000 rows x 8-d inputs (SE kernel, constant mean,
      batch 8192, 5 Adam steps; the second task runs masked at n = 8192);
@@ -437,12 +439,18 @@ def phase_fused_kernels(dev):
   worst = {'fused_mll': 0.0, 'tri_inv': 0.0, 'mll_bwd': 0.0}
   big = None
   for n, d, kfam, seed in ((512, 4, 'se', 1), (700, 3, 'matern32', 2),
+                           (5000, FUSED_DIM, 'se', 4),
                            (8192, FUSED_DIM, 'se', 3)):
     errs, inputs = fused_case(dev, n, d, kfam, seed=seed)
     worst['fused_mll'] = max(worst['fused_mll'], errs['L_abs'])
     worst['tri_inv'] = max(worst['tri_inv'], errs['T_abs'])
     worst['mll_bwd'] = max(worst['mll_bwd'], errs['P_abs'])
     big = inputs
+  # K3 sums in a fixed order (no atomics, no split-k).
+  if not torch.equal(tri_inv.launch_tri_inv(big['l']),
+                     tri_inv.launch_tri_inv(big['l'])):
+    raise AssertionError('K3: two calls at n=8192 differ')
+  log('K3 two calls at n=8192: bitwise equal')
 
   # Not positive definite (da < 0): NaN value, NaN-or-zero gradients.
   rng = np.random.default_rng(4)

@@ -20,6 +20,7 @@ import torch
 from hyperbo_tpu_torch.bo import const
 from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.models import gp
+from hyperbo_tpu_torch.models import objectives as obj
 
 SubDataset = defs.SubDataset
 
@@ -45,6 +46,8 @@ def retrain_model(model: gp.GP,
   if not (config.get('retrain', 0) > 0 and
           model.dataset[sub_dataset_key].x.shape[0] > 0):
     return
+  if config['objective'] in [obj.regkl, obj.regeuc]:
+    raise ValueError('Objective must include NLL to retrain.')
   logging.info('Retraining with max_training_step = %d.',
                config['retrain'])
   saved = config.get('max_training_step')
@@ -72,12 +75,17 @@ def _bo_iterations(model: gp.GP,
                    get_params_path: Optional[Callable[..., Any]] = None,
                    callback: Optional[Callable[..., Any]] = None
                    ) -> SubDataset:
-  """Shared sequential BO loop: retrain -> propose -> append."""
+  """Shared sequential BO loop: retrain -> propose -> append.
+
+  The proposal runs under no_grad: the acquisition and the posterior it
+  reads build no autograd graph in the loop.
+  """
   for i in range(iters):
     retrain_model(model, sub_dataset_key=sub_dataset_key,
                   generator=generator, get_params_path=get_params_path,
                   callback=callback)
-    datapoint = propose(generator, i)
+    with torch.no_grad():
+      datapoint = propose(generator, i)
     model.update_sub_dataset(
         datapoint, sub_dataset_key=sub_dataset_key, is_append=True)
   empty = torch.empty(0, device=model.device)

@@ -411,6 +411,7 @@ class GP:
     self.params.model = model_params
     self.params.cache = {}
 
+  @torch.no_grad()
   def setup_predictor(self, sub_dataset_key: Union[int, str] = 0):
     """Compute (or incrementally update) the Cholesky cache.
 
@@ -418,7 +419,8 @@ class GP:
     loop's access pattern), the factor is extended with O(n^2) rank-1
     appends inside a power-of-two bucket buffer (GPCache.num_obs marks the
     valid prefix) instead of an O(n^3) refactorization. Replacement or new
-    parameters recompute it in full.
+    parameters recompute it in full. The cached factor and K^{-1} y carry
+    no autograd graph.
     """
     cache = self.params.cache.get(sub_dataset_key)
     if cache is not None and not cache.needs_update:
@@ -460,14 +462,17 @@ class GP:
       self.params.cache[sub_dataset_key] = GPCache(
           chol=chol, kinvy=kinvy, needs_update=False)
 
-  @torch.no_grad()
   def predict(self,
               queried_inputs,
               sub_dataset_key: Union[int, str] = 0,
               full_cov: bool = False,
               with_noise: bool = True,
               unbiased: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Posterior (mu, cov-or-var) at queried inputs for one sub-dataset."""
+    """Posterior (mu, cov-or-var) at queried inputs for one sub-dataset.
+
+    Differentiable with respect to `queried_inputs`, as the JAX package's
+    is; the cached factor and K^{-1} y it reads are constants.
+    """
     queried_inputs = self._tensor(queried_inputs)
     if sub_dataset_key not in self.dataset:
       self.params.model = convert.model_to(self.params.model, self.device)

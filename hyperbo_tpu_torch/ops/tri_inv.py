@@ -8,16 +8,19 @@ layout the forward kernel writes and K4 reads; the TPU's panel-major
 (nb, n, B) layout was a DMA choice and has no counterpart here.
 
 `tri_inv` dispatches on the tensor's device: a CUDA tensor goes through
-the hand-written Hopper kernel (csrc/tri_inv.cu; block forward
-substitution given the diagonal tiles' inverses from `diag_inverses`) or
-raises; a CPU tensor goes through the plain PyTorch version `tri_inv_plain`,
-the n-RHS triangular solve that the JAX package's CPU default takes
-(pallas_mll._tri_inv). There is no fallback from one to the other.
+the hand-written Hopper kernel (csrc/tri_inv.cu: the recursive 2 x 2 block
+inverse run level by level, `merges`, on tiled FP32 products, given the
+diagonal tiles' inverses from `diag_inverses`) or raises; a CPU tensor goes
+through the plain PyTorch version `tri_inv_plain`, the n-RHS triangular
+solve that the JAX package's CPU default takes (pallas_mll._tri_inv).
+There is no fallback from one to the other. `tri_inv_levels` is the
+kernel's algorithm in plain PyTorch, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Tuple
 
 import torch
 
@@ -27,8 +30,8 @@ TILE = 64
 
 KERNEL = _build.CudaKernel(
     'tri_inv.cu', 'hyperbo_tri_inv',
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-     ctypes.c_void_p])
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+     ctypes.c_int, ctypes.c_void_p])
 
 
 def tri_inv_plain(l: torch.Tensor) -> torch.Tensor:
@@ -47,9 +50,55 @@ def diag_inverses(l: torch.Tensor, block: int = TILE) -> torch.Tensor:
   return torch.tril(torch.linalg.solve_triangular(diag, eye, upper=False))
 
 
+def merges(nb: int) -> List[List[Tuple[int, int, int]]]:
+  """The kernel's level schedule over nb diagonal tiles: one list per level
+  l = 1, 2, ... (run in order), of the merges (a0, c0, c1) in tiles. A
+  merge joins the inverted ranges A = [a0, c0) and C = [c0, c1): the
+  aligned range [a0, a0 + 2^l) clipped to nb, when its right half C is not
+  empty."""
+  levels = []
+  half = 1
+  while half < nb:
+    levels.append([(s, s + half, min(s + 2 * half, nb))
+                   for s in range(0, nb - half, 2 * half)])
+    half *= 2
+  return levels
+
+
+def tri_inv_levels(l: torch.Tensor, block: int = TILE) -> torch.Tensor:
+  """Plain mirror of the kernel's algorithm (tests run it in float64):
+  T_jj = D_j (diag_inverses), then, level by level, each merge writes
+  T[C, A] = -T_C (L[C, A] T_A), each product skipping the zero triangle
+  of its triangular factor one `block` of columns (rows) at a time, as the
+  kernel does one block tile at a time."""
+  b = block
+  t = torch.zeros_like(l)
+  for j, d in enumerate(diag_inverses(l, b)):
+    t[j * b:(j + 1) * b, j * b:(j + 1) * b] = d
+  for level in merges(l.shape[-1] // b):
+    for a0, c0, c1 in level:
+      a = slice(a0 * b, c0 * b)
+      c = slice(c0 * b, c1 * b)
+      l_ca, t_a, t_c = l[c, a], t[a, a], t[c, c]
+      w = torch.cat([l_ca[:, k:] @ t_a[k:, k:k + b]
+                     for k in range(0, t_a.shape[0], b)], dim=1)
+      t[c, a] = -torch.cat([t_c[r:r + b, :r + b] @ w[:r + b]
+                            for r in range(0, t_c.shape[0], b)])
+  return t
+
+
+def scratch_floats(n: int) -> int:
+  """Floats of the kernel's scratch: the largest level's W = L[C, A] T_A
+  over all its merges (at most n^2 / 4)."""
+  sizes = [sum((c1 - c0) * (c0 - a0) for a0, c0, c1 in level)
+           for level in merges(n // TILE)]
+  return max(sizes, default=0) * TILE * TILE
+
+
 def launch_tri_inv(l: torch.Tensor) -> torch.Tensor:
   """Run the Hopper kernel on a contiguous float32 CUDA (n, n) factor, n a
-  multiple of 64."""
+  multiple of 64: one call of its C entry point, which enqueues every
+  level on the current stream."""
   _build.check_cuda_f32('launch_tri_inv', l=l)
   n = l.shape[-1]
   if l.shape != (n, n) or n == 0 or n % TILE:
@@ -57,9 +106,11 @@ def launch_tri_inv(l: torch.Tensor) -> torch.Tensor:
                      f'{TILE}, got {tuple(l.shape)}')
   dinv = diag_inverses(l).contiguous()
   t = torch.empty_like(l)
+  scratch = torch.empty(scratch_floats(n), dtype=l.dtype, device=l.device)
   with torch.cuda.device(l.device):
     stream = torch.cuda.current_stream(l.device).cuda_stream
-    KERNEL.launch(l.data_ptr(), dinv.data_ptr(), t.data_ptr(), n, stream)
+    KERNEL.launch(l.data_ptr(), dinv.data_ptr(), t.data_ptr(),
+                  scratch.data_ptr(), n, stream)
   return t
 
 

@@ -13,7 +13,8 @@ another order on another device). The fused large-n kernels K2-K4 against
 their float64 plain versions: L within atol 5e-4 (tests/test_pallas_chol.py),
 quad and logdet within rtol 1e-4 (tests/test_objectives.py:313), T, P and
 the two backward scalars within 5e-3 of their largest entry (bench.py:540,
-the gradient parity bound). The dense-Cholesky kernels K6 and K7 against
+the gradient parity bound), and K3's T bitwise equal across two calls
+(one fixed-order sum per entry). The dense-Cholesky kernels K6 and K7 against
 their float64 plain versions: atol 5e-4 (tests/test_pallas_chol.py); the
 model evaluation through them within rtol 1e-4 of the cuSOLVER route for
 the NLL and the partial EKL, and 1e-3 for the full EKL, whose whitened
@@ -162,7 +163,8 @@ def _max_rel(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('n,d,n_valid,kfam', [(512, 4, 512, 'se'),
-                                              (704, 3, 700, 'matern32')])
+                                              (704, 3, 700, 'matern32'),
+                                              (5056, 8, 5000, 'se')])
 def test_fused_kernels_match_plain(cuda_device, n, d, n_valid, kfam):
   """K2, K3 and K4 against their float64 plain versions; K3 and K4 each on
   the float32 rounding of the plain version's input."""
@@ -193,6 +195,16 @@ def test_fused_kernels_match_plain(cuda_device, n, d, n_valid, kfam):
   torch.cuda.synchronize()
   assert [k.KERNEL.launches for k in (fused_mll, tri_inv, mll_bwd)] == [
       c + 1 for c in counts]
+
+
+@pytest.mark.cuda
+def test_tri_inv_is_deterministic(cuda_device):
+  """K3 sums every entry of T in one fixed order: two calls are bitwise
+  equal (n = 2048: the 128 x 128 block tiles of the top levels)."""
+  x, y, sv, da, _ = _fused_inputs(8, 2048, 4, 2048, cuda_device,
+                                  torch.float64)
+  l = fused_mll.mll_fused_plain(x, y, sv, da)[0].float().contiguous()
+  assert torch.equal(tri_inv.tri_inv(l), tri_inv.tri_inv(l))
 
 
 @pytest.mark.cuda

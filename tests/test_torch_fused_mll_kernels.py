@@ -1,8 +1,11 @@
 """Kernels K3 and K4's plain versions in the PyTorch port
 (hyperbo_tpu_torch/ops/tri_inv.py and mll_bwd.py) against the JAX
-package's Pallas kernels in interpret mode on the CPU, and the fused core's
-non-PD and device contracts. K2's test, the helpers and the tolerances are
-in test_torch_fused_mll.py.
+package's Pallas kernels in interpret mode on the CPU, K3's level schedule
+(tri_inv_levels, the Hopper kernel's algorithm) against the plain version
+in float64 over ragged tile counts (within 1e-10 of T's largest entry:
+float64 products of a well-conditioned factor), and the fused core's
+non-PD and device contracts. K2's test, the helpers and the other
+tolerances are in test_torch_fused_mll.py.
 """
 
 import jax.numpy as jnp
@@ -35,23 +38,18 @@ def factor_and_inverse():
   return x, y, l, tpm, t_dense
 
 
-def test_k3_plain_matches_jax_kernel(factor_and_inverse):
+@pytest.mark.parametrize('nb', [1, 2, 3, 11, 79, 128])
+def test_k3_plain_matches_jax_kernel(factor_and_inverse, nb):
   _, _, l, _, t_j = factor_and_inverse
   t_t = tri_inv.tri_inv(torch.from_numpy(l)).numpy()
   assert np.all(np.triu(t_t, 1) == 0)
   np.testing.assert_allclose(t_t, t_j, atol=1e-5 * np.abs(t_j).max())
-  # The Hopper kernel's block substitution, given diag_inverses, is the
-  # same inverse (run here in float64 on the float32 factor).
-  l64 = torch.from_numpy(l).double()
-  dinv = tri_inv.diag_inverses(l64)
-  nb, b = dinv.shape[0], dinv.shape[1]
-  t = torch.zeros_like(l64)
-  for j in range(nb):
-    t[j * b:(j + 1) * b, j * b:(j + 1) * b] = dinv[j]
-    for i in range(j + 1, nb):
-      acc = l64[i * b:(i + 1) * b, j * b:i * b] @ t[j * b:i * b,
-                                                     j * b:(j + 1) * b]
-      t[i * b:(i + 1) * b, j * b:(j + 1) * b] = -dinv[i] @ acc
+  # The Hopper kernel's level schedule (recursive 2 x 2 block inverse over
+  # nb tiles of 8, ragged counts included) is the same inverse, run here in
+  # float64 on a float32 factor.
+  l64 = torch.from_numpy(_factor(_inputs(nb, 8 * nb, 4)[0])).double()
+  t = tri_inv.tri_inv_levels(l64, block=8)
+  assert bool((torch.triu(t, 1) == 0).all())
   np.testing.assert_allclose(t.numpy(), tri_inv.tri_inv_plain(l64).numpy(),
                              atol=1e-10 * float(t.abs().max()))
 
