@@ -34,10 +34,13 @@ exits non-zero and the final ok line is never printed:
      1e-4, max rel 5e-3 per gradient leaf), and one value and gradient at
      n = 16384, finite, with its time;
   8. K7 and K6 (the dense Cholesky kernels) against their float64 plain
-     versions on the card (atol 5e-4): K7 at n = 1, 37, 128, 300, 512 and a
+     versions on the card (atol 5e-4): K7 at n = 1, 37, 64, 65, 128, 300,
+     511, 512 (clusters of 1 to 8 blocks, ragged last block columns) and a
      (23, 100, 100) batch, K6 at n = 1024, 2048, 4096 and a batch of two;
-     NaN for a non-PD matrix; the time of each, its plain version and
-     torch.linalg.cholesky at the shapes of phase 9;
+     NaN for a non-PD middle matrix of a batch of three, and only there;
+     K7 one launch a call and two calls at (1, 512, 512) bitwise equal; the
+     time of each, its plain version and torch.linalg.cholesky at the
+     shapes of phase 9;
   9. the EKL slice at PD1 width: one nll_regkl(1.) step's loss on the card
      against the CPU (same parameters and injected subsample, rtol 1e-4);
      GP.train() with nll_regkl(1.) on the 23 tasks plus one aligned
@@ -792,7 +795,9 @@ def phase_dense_kernels(dev):
   from hyperbo_tpu_torch.ops import chol_hbm, chol_panel
   rng = np.random.default_rng(7)
   worst = {'chol_panel': 0.0, 'chol_hbm': 0.0}
-  cases = [('chol_panel', 1, n) for n in (1, 37, 128, 300, 512)]
+  # K7: one block (n <= 64), ragged block columns (37, 65, 300, 511), the
+  # full cluster of eight (511, 512) and the packed training batch.
+  cases = [('chol_panel', 1, n) for n in (1, 37, 64, 65, 128, 300, 511, 512)]
   cases += [('chol_panel', TASKS, BATCH)]
   cases += [('chol_hbm', 1, n) for n in (1024, 2048, 4096)]
   cases += [('chol_hbm', 2, 1024)]
@@ -809,15 +814,27 @@ def phase_dense_kernels(dev):
     if not err <= L_ATOL:
       raise AssertionError(f'{name} error {err} > {L_ATOL} at ({t}, {n})')
     worst[name] = max(worst[name], err)
-  for name, n in (('chol_panel', 300), ('chol_hbm', 1024)):
-    bad = spd_batch(rng, 2, n)
+  # A negative pivot in the last block column of the middle matrix fails
+  # late, while the other matrices' factors finish.
+  for name, n in (('chol_panel', 300), ('chol_panel', 512),
+                  ('chol_hbm', 1024)):
+    bad = spd_batch(rng, 3, n)
     bad[1, -1, -1] = -5.0
     got = launch[name](torch.from_numpy(bad).to(dev))
     torch.cuda.synchronize()
-    if not (bool(torch.isfinite(got[0]).all()) and
+    if not (bool(torch.isfinite(got[[0, 2]]).all()) and
             bool(torch.isnan(got[1]).all())):
       raise AssertionError(f'{name} must give NaN for the non-PD matrix only')
-    log(f'{name} non-PD input: NaN for that matrix only')
+    log(f'{name} non-PD middle matrix of (3, {n}, {n}): NaN for that matrix '
+        'only')
+  a = torch.from_numpy(spd_batch(rng, 1, 512)).to(dev)
+  before = chol_panel.KERNEL.launches
+  first = chol_panel.launch_chol_panel(a)
+  if chol_panel.KERNEL.launches != before + 1:
+    raise AssertionError('K7 must be one launch a call')
+  if not torch.equal(first, chol_panel.launch_chol_panel(a)):
+    raise AssertionError('K7: two calls at (1, 512, 512) differ')
+  log('chol_panel (1, 512, 512): one launch a call, two calls bitwise equal')
 
   times = {}
   for name, n in (('chol_panel', 512), ('chol_hbm', ALIGNED_POINTS)):

@@ -7,12 +7,17 @@ set: directly for n <= 512, and as the base case of the blocked recursion
 as both Pallas kernels do.
 
 The wrappers dispatch on the tensor's device: a CUDA tensor goes through
-the hand-written Hopper kernel (csrc/chol_panel.cu: one block a matrix,
-64-wide left-looking panels in shared memory) or raises; a CPU tensor goes
-through the plain PyTorch version `cholesky_panel_plain`. There is no
-fallback from one to the other. The three JAX entry points compute the
-same factor and share the one kernel here: the Hopper kernel takes any
-n <= 512, so `cholesky_panel_padded` needs no identity padding, and
+the hand-written Hopper kernel (csrc/chol_panel.cu) or raises; a CPU tensor
+goes through the plain PyTorch version `cholesky_panel_plain`. There is no
+fallback from one to the other. The kernel factors each matrix right-looking
+in 64-wide block columns on a thread-block cluster, one block a block
+column kept in its shared memory: `cluster_steps` is its schedule and
+`cholesky_panel_steps` its float64 mirror, which only the tests run. Its
+time is the chain of ceil(n / 64) diagonal factors, panel solves, updates
+of the next diagonal block and cluster barriers, far above its bound of
+n^3/3 operations and 8 n^2 bytes. The three JAX entry points compute the same
+factor and share the one kernel here: the Hopper kernel takes any n <= 512,
+so `cholesky_panel_padded` needs no identity padding, and
 `cholesky_panel_blocked` keeps only its shape check. Every entry point takes
 a batch (..., n, n). The route of ops/chol.py calls `cholesky_panel`.
 
@@ -30,6 +35,8 @@ from hyperbo_tpu_torch.ops import _build
 from hyperbo_tpu_torch.ops.chol import plain_cholesky, poison_non_pd
 
 MAX_N = 512
+BLOCK = 64  # block column width: one block of the kernel's cluster each
+SUB = 16    # sub-panel width of a block's factor of its diagonal block
 
 KERNEL = _build.CudaKernel(
     'chol_panel.cu', 'hyperbo_chol_panel',
@@ -43,9 +50,91 @@ def cholesky_panel_plain(a: torch.Tensor) -> torch.Tensor:
   return plain_cholesky(0.5 * (a + a.transpose(-1, -2)))
 
 
+def cluster_steps(n: int) -> list:
+  """The kernel's schedule for one n x n matrix: a list of steps, each the
+  parts that the cluster's blocks run before the step's cluster barrier, in
+  order. Block j owns block column j (columns 64 j .. 64 j + 63, rows
+  64 j .. n - 1). Step 0 is ('factor', 0); step k + 1 holds ('update', j, k)
+  for every block j > k (block j subtracts panel k's products), then
+  ('factor', k + 1): block k + 1, which updates its diagonal block first,
+  factors it while its other rows take the rest of the update, then solves
+  its panel."""
+  nc = -(-n // BLOCK)
+  steps = [[('factor', 0)]]
+  for k in range(nc - 1):
+    steps.append([('update', j, k) for j in range(k + 1, nc)] +
+                 [('factor', k + 1)])
+  return steps
+
+
+def cholesky_panel_steps(a: torch.Tensor) -> torch.Tensor:
+  """Plain mirror of the kernel's algorithm (tests run it in float64): the
+  factor of 0.5 (A + A^T) by `cluster_steps`, each block column held
+  apart as its block holds it; an update subtracts one 64-deep product of
+  the panel's rows, a factor is `_factor_block_column`. NaN (or inf) where
+  not positive definite, as the kernel gives before the wrapper's poison."""
+  n = a.shape[-1]
+  b = BLOCK
+  sym = 0.5 * (a + a.transpose(-1, -2))
+  cols = [sym[..., j:, j:j + b].clone() for j in range(0, n, b)]
+  for step in cluster_steps(n):
+    for part in step:
+      if part[0] == 'update':
+        _, j, k = part
+        p = cols[k][..., (j - k) * b:, :]
+        cols[j] -= p @ p[..., :cols[j].shape[-1], :].transpose(-1, -2)
+      else:
+        _factor_block_column(cols[part[1]])
+  out = torch.zeros_like(sym)
+  for j, col in enumerate(cols):
+    out[..., j * b:, j * b:j * b + col.shape[-1]] = torch.tril(col)
+  return out
+
+
+def _factor_block_column(col: torch.Tensor):
+  """In place: one block's factor of its block column (rows, w). The
+  w x w diagonal block goes right-looking over SUB-wide sub-panels: each
+  diagonal sub-block (a ragged one identity-padded) is factored column by
+  column (the pivot p times 1 / sqrt(p) on the diagonal, the column below
+  scaled by 1 / sqrt(p), then each later column c less the column times
+  its entry in row c), the diagonal block's rows below it take the
+  same column order against it, then their products leave its later
+  columns. The panel's rows (below the diagonal block) are then solved
+  against all of L11 in one column sweep of the same form."""
+  w = col.shape[-1]
+  s = SUB
+  rdiag = []
+  for s0 in range(0, w, s):
+    sw = min(s, w - s0)
+    d = torch.eye(s, dtype=col.dtype, device=col.device).expand(
+        col.shape[:-2] + (s, s)).clone()
+    d[..., :sw, :sw] = col[..., s0:s0 + sw, s0:s0 + sw]
+    for j in range(s):
+      p = d[..., j, j].clone()
+      rp = torch.rsqrt(p)
+      rdiag.append(rp)
+      d[..., j + 1:, j] *= rp[..., None]
+      d[..., j, j] = p * rp
+      d[..., j + 1:, j + 1:] -= (d[..., j + 1:, j:j + 1] *
+                                 d[..., None, j + 1:, j])
+    col[..., s0:s0 + sw, s0:s0 + sw] = d[..., :sw, :sw]
+    x = col[..., s0 + s:w, s0:s0 + s]
+    if not x.shape[-2]:
+      continue
+    for j in range(s):
+      x[..., j] *= rdiag[s0 + j][..., None]
+      x[..., j + 1:] -= x[..., j:j + 1] * d[..., None, j + 1:, j]
+    col[..., s0 + s:w, s0 + s:w] -= x @ x.transpose(-1, -2)
+  x = col[..., w:, :]
+  l11 = col[..., :w, :]
+  for j in range(w if x.shape[-2] else 0):
+    x[..., j] *= rdiag[j][..., None]
+    x[..., j + 1:] -= x[..., j:j + 1] * l11[..., None, j + 1:, j]
+
+
 def launch_chol_panel(a: torch.Tensor) -> torch.Tensor:
   """Run the Hopper kernel on a contiguous float32 CUDA batch (..., n, n),
-  n <= 512."""
+  n <= 512: one launch of ceil(n / 64) blocks a matrix."""
   _build.check_cuda_f32('launch_chol_panel', a=a)
   n = a.shape[-1]
   if a.ndim < 2 or a.shape[-2] != n or not 1 <= n <= MAX_N:

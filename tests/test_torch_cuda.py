@@ -273,12 +273,15 @@ def test_fused_training_runs_through_the_kernels(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('module,t,n', [
-    (chol_panel, 1, 1), (chol_panel, 1, 37), (chol_panel, 1, 300),
+    (chol_panel, 1, 1), (chol_panel, 1, 37), (chol_panel, 1, 64),
+    (chol_panel, 1, 65), (chol_panel, 1, 300), (chol_panel, 1, 511),
     (chol_panel, 1, 512), (chol_panel, 23, 100), (chol_hbm, 1, 1024),
     (chol_hbm, 2, 1024), (chol_hbm, 1, 2048)])
 def test_dense_cholesky_kernels_match_plain(cuda_device, module, t, n):
   """K7 (chol_panel) and K6 (chol_hbm) against their float64 plain
-  versions, one launch each; a non-PD matrix of the batch comes out NaN."""
+  versions, one launch each, two calls bitwise equal; a non-PD entry in the
+  last block column of the middle matrix of a batch of three makes that
+  matrix NaN, and only that one."""
   kb = _spd_batch(t + n, t, n).to(cuda_device)
   launch = (chol_panel.launch_chol_panel if module is chol_panel
             else chol_hbm.launch_chol_hbm)
@@ -290,11 +293,13 @@ def test_dense_cholesky_kernels_match_plain(cuda_device, module, t, n):
   assert module.KERNEL.launches == before + 1
   np.testing.assert_allclose(got.cpu().double().numpy(),
                              plain(kb.double()).cpu().numpy(), atol=5e-4)
-  bad = kb.clone()
-  bad[-1, -1, -1] = -5.0
+  if module is chol_panel:
+    assert torch.equal(launch(kb), got)
+  bad = _spd_batch(t + n + 1, 3, n).to(cuda_device)
+  bad[1, -1, -1] = -5.0
   got = launch(bad).cpu()
-  assert torch.isnan(got[-1]).all()
-  assert torch.isfinite(got[:-1]).all()
+  assert torch.isnan(got[1]).all()
+  assert torch.isfinite(got[[0, 2]]).all()
 
 
 @pytest.mark.cuda
