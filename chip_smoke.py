@@ -36,11 +36,12 @@ exits non-zero and the final ok line is never printed:
   8. K7 and K6 (the dense Cholesky kernels) against their float64 plain
      versions on the card (atol 5e-4): K7 at n = 1, 37, 64, 65, 128, 300,
      511, 512 (clusters of 1 to 8 blocks, ragged last block columns) and a
-     (23, 100, 100) batch, K6 at n = 1024, 2048, 4096 and a batch of two;
-     NaN for a non-PD middle matrix of a batch of three, and only there;
-     K7 one launch a call and two calls at (1, 512, 512) bitwise equal; the
-     time of each, its plain version and torch.linalg.cholesky at the
-     shapes of phase 9;
+     (23, 100, 100) batch, K6 at n = 64, 576, 1024, 2048, 4096 and a batch
+     of two at 1024; NaN for a non-PD middle matrix of a batch of three,
+     and only there; each one launch a call and two calls bitwise equal
+     (K7 at (1, 512, 512), K6 at (1, 1024, 1024)); the time of each, its
+     plain version and torch.linalg.cholesky at the shapes of phase 9, and
+     of K6 also at (2, 1024, 1024), (1, 2048, 2048) and (1, 4096, 4096);
   9. the EKL slice at PD1 width: one nll_regkl(1.) step's loss on the card
      against the CPU (same parameters and injected subsample, rtol 1e-4);
      GP.train() with nll_regkl(1.) on the 23 tasks plus one aligned
@@ -799,7 +800,9 @@ def phase_dense_kernels(dev):
   # full cluster of eight (511, 512) and the packed training batch.
   cases = [('chol_panel', 1, n) for n in (1, 37, 64, 65, 128, 300, 511, 512)]
   cases += [('chol_panel', TASKS, BATCH)]
-  cases += [('chol_hbm', 1, n) for n in (1024, 2048, 4096)]
+  # K6: one diagonal factor (64), n not a multiple of 512 (576), the
+  # route's 1024 alone and side by side, and longer chains.
+  cases += [('chol_hbm', 1, n) for n in (64, 576, 1024, 2048, 4096)]
   cases += [('chol_hbm', 2, 1024)]
   launch = {'chol_panel': chol_panel.launch_chol_panel,
             'chol_hbm': chol_hbm.launch_chol_hbm}
@@ -827,14 +830,16 @@ def phase_dense_kernels(dev):
       raise AssertionError(f'{name} must give NaN for the non-PD matrix only')
     log(f'{name} non-PD middle matrix of (3, {n}, {n}): NaN for that matrix '
         'only')
-  a = torch.from_numpy(spd_batch(rng, 1, 512)).to(dev)
-  before = chol_panel.KERNEL.launches
-  first = chol_panel.launch_chol_panel(a)
-  if chol_panel.KERNEL.launches != before + 1:
-    raise AssertionError('K7 must be one launch a call')
-  if not torch.equal(first, chol_panel.launch_chol_panel(a)):
-    raise AssertionError('K7: two calls at (1, 512, 512) differ')
-  log('chol_panel (1, 512, 512): one launch a call, two calls bitwise equal')
+  kernels = {'chol_panel': chol_panel.KERNEL, 'chol_hbm': chol_hbm.KERNEL}
+  for name, n in (('chol_panel', 512), ('chol_hbm', ALIGNED_POINTS)):
+    a = torch.from_numpy(spd_batch(rng, 1, n)).to(dev)
+    before = kernels[name].launches
+    first = launch[name](a)
+    if kernels[name].launches != before + 1:
+      raise AssertionError(f'{name} must be one launch a call')
+    if not torch.equal(first, launch[name](a)):
+      raise AssertionError(f'{name}: two calls at (1, {n}, {n}) differ')
+    log(f'{name} (1, {n}, {n}): one launch a call, two calls bitwise equal')
 
   times = {}
   for name, n in (('chol_panel', 512), ('chol_hbm', ALIGNED_POINTS)):
@@ -847,6 +852,14 @@ def phase_dense_kernels(dev):
     log(f'{name} time at (1, {n}, {n}) (median of {2 * DENSE_TIMED_RUNS} '
         f'each): kernel {ms["kernel"]:.4f} ms, plain {ms["plain"]:.4f} ms, '
         f'torch.linalg.cholesky {ms["library"]:.4f} ms')
+  for t, n in ((2, 1024), (1, 2048), (1, 4096)):
+    a = torch.from_numpy(spd_batch(rng, t, n)).to(dev)
+    a = 0.5 * (a + a.transpose(-1, -2))
+    ms = _turns(DENSE_TIMED_RUNS, kernel=lambda: chol_hbm.launch_chol_hbm(a),
+                library=lambda: torch.linalg.cholesky(a))
+    log(f'chol_hbm time at ({t}, {n}, {n}) (median of {2 * DENSE_TIMED_RUNS} '
+        f'each): kernel {ms["kernel"]:.4f} ms, torch.linalg.cholesky '
+        f'{ms["library"]:.4f} ms')
   return worst, times
 
 

@@ -1,10 +1,12 @@
 // Blocked right-looking Cholesky on the dense row-major layout of
-// tile_common.cuh, shared by the fused NLL forward (fused_mll.cu, kernel K2)
-// and the standalone factorization (chol_hbm.cu, kernel K6).
+// tile_common.cuh, for the fused NLL forward (fused_mll.cu, kernel K2)
+// alone. The standalone factorization K6 (chol_hbm.cu) no longer runs it:
+// it is one persistent launch with lookahead on chol_diag64.cuh's diagonal
+// factor, whose lessons K2's redesign can take.
 //
 // The matrix A (n x n, n a multiple of kTile) is factored in place: its lower
 // triangle is read, L is written over it, and the strict upper triangle is
-// left as the caller put it (K2 and K6 both write zeros there first). For
+// left as the caller put it (K2 writes zeros there first). For
 // each 64-wide column panel k, on the caller's stream:
 //   chol_diag   factor the diagonal tile in shared memory and invert it;
 //               with kSolve, also z_k = L_kk^{-1} y_k and this step's

@@ -71,7 +71,7 @@ def cholesky_panel_steps(a: torch.Tensor) -> torch.Tensor:
   """Plain mirror of the kernel's algorithm (tests run it in float64): the
   factor of 0.5 (A + A^T) by `cluster_steps`, each block column held
   apart as its block holds it; an update subtracts one 64-deep product of
-  the panel's rows, a factor is `_factor_block_column`. NaN (or inf) where
+  the panel's rows, a factor is `factor_block_column`. NaN (or inf) where
   not positive definite, as the kernel gives before the wrapper's poison."""
   n = a.shape[-1]
   b = BLOCK
@@ -84,23 +84,23 @@ def cholesky_panel_steps(a: torch.Tensor) -> torch.Tensor:
         p = cols[k][..., (j - k) * b:, :]
         cols[j] -= p @ p[..., :cols[j].shape[-1], :].transpose(-1, -2)
       else:
-        _factor_block_column(cols[part[1]])
+        factor_block_column(cols[part[1]])
   out = torch.zeros_like(sym)
   for j, col in enumerate(cols):
     out[..., j * b:, j * b:j * b + col.shape[-1]] = torch.tril(col)
   return out
 
 
-def _factor_block_column(col: torch.Tensor):
-  """In place: one block's factor of its block column (rows, w). The
-  w x w diagonal block goes right-looking over SUB-wide sub-panels: each
-  diagonal sub-block (a ragged one identity-padded) is factored column by
-  column (the pivot p times 1 / sqrt(p) on the diagonal, the column below
-  scaled by 1 / sqrt(p), then each later column c less the column times
-  its entry in row c), the diagonal block's rows below it take the
-  same column order against it, then their products leave its later
-  columns. The panel's rows (below the diagonal block) are then solved
-  against all of L11 in one column sweep of the same form."""
+def factor_block_column(col: torch.Tensor) -> torch.Tensor:
+  """In place: one block's factor of its block column (rows, w); returns
+  1 / sqrt of the pivots (..., w). The w x w diagonal block goes
+  right-looking over SUB-wide sub-panels: each diagonal sub-block (a ragged
+  one identity-padded) is factored column by column (the pivot p times
+  1 / sqrt(p) on the diagonal, the column below scaled by 1 / sqrt(p), then
+  each later column c less the column times its entry in row c), the
+  diagonal block's rows below it take the same column order against it,
+  then their products leave its later columns. The panel's rows (below the
+  diagonal block) are then solved against all of L11 (`solve_rows`)."""
   w = col.shape[-1]
   s = SUB
   rdiag = []
@@ -125,10 +125,17 @@ def _factor_block_column(col: torch.Tensor):
       x[..., j] *= rdiag[s0 + j][..., None]
       x[..., j + 1:] -= x[..., j:j + 1] * d[..., None, j + 1:, j]
     col[..., s0 + s:w, s0 + s:w] -= x @ x.transpose(-1, -2)
-  x = col[..., w:, :]
-  l11 = col[..., :w, :]
-  for j in range(w if x.shape[-2] else 0):
-    x[..., j] *= rdiag[j][..., None]
+  rdiag = torch.stack(rdiag, -1)
+  solve_rows(col[..., w:, :], col[..., :w, :], rdiag)
+  return rdiag
+
+
+def solve_rows(x: torch.Tensor, l11: torch.Tensor, rdiag: torch.Tensor):
+  """In place: x <- x L11^-T in one column sweep, as a thread solves its
+  row (scale column j by 1 / sqrt(p_j), then take x_j L11[c][j] from every
+  later column c); rdiag (..., w) holds 1 / sqrt of L11's pivots."""
+  for j in range(l11.shape[-1] if x.shape[-2] else 0):
+    x[..., j] *= rdiag[..., j, None]
     x[..., j + 1:] -= x[..., j:j + 1] * l11[..., None, j + 1:, j]
 
 

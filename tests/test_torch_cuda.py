@@ -275,8 +275,9 @@ def test_fused_training_runs_through_the_kernels(cuda_device):
 @pytest.mark.parametrize('module,t,n', [
     (chol_panel, 1, 1), (chol_panel, 1, 37), (chol_panel, 1, 64),
     (chol_panel, 1, 65), (chol_panel, 1, 300), (chol_panel, 1, 511),
-    (chol_panel, 1, 512), (chol_panel, 23, 100), (chol_hbm, 1, 1024),
-    (chol_hbm, 2, 1024), (chol_hbm, 1, 2048)])
+    (chol_panel, 1, 512), (chol_panel, 23, 100), (chol_hbm, 1, 64),
+    (chol_hbm, 1, 576), (chol_hbm, 1, 1024), (chol_hbm, 2, 1024),
+    (chol_hbm, 1, 2048)])
 def test_dense_cholesky_kernels_match_plain(cuda_device, module, t, n):
   """K7 (chol_panel) and K6 (chol_hbm) against their float64 plain
   versions, one launch each, two calls bitwise equal; a non-PD entry in the
@@ -293,8 +294,7 @@ def test_dense_cholesky_kernels_match_plain(cuda_device, module, t, n):
   assert module.KERNEL.launches == before + 1
   np.testing.assert_allclose(got.cpu().double().numpy(),
                              plain(kb.double()).cpu().numpy(), atol=5e-4)
-  if module is chol_panel:
-    assert torch.equal(launch(kb), got)
+  assert torch.equal(launch(kb), got)
   bad = _spd_batch(t + n + 1, 3, n).to(cuda_device)
   bad[1, -1, -1] = -5.0
   got = launch(bad).cpu()

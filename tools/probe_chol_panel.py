@@ -7,8 +7,10 @@ Builds K7 and prints nvcc's register, spill and shared-memory report, and
 the launch at n = 512: cluster size, threads and dynamic shared memory a
 block, and how many such clusters the card holds at once. Holds K7 against
 the float64 plain version at chip_smoke.py phase 8's shapes (max abs,
-bound 5e-4), checks NaN for a non-PD middle matrix of a batch and only
-there, two calls at (1, 512, 512) bitwise equal and one launch a call.
+bound 5e-4) and prints a digest of those outputs (equal digests from two
+checkouts: bitwise equal factors), checks NaN for a non-PD middle matrix
+of a batch and only there, two calls at (1, 512, 512) bitwise equal and
+one launch a call.
 Times the wrapper, its plain version and torch.linalg.cholesky at
 (1, 512, 512) and (2, 512, 512) (medians of CUDA-event timings, in turns),
 the kernel alone back to back, and the device time of each kernel of one
@@ -21,6 +23,7 @@ sub-block's factor beside them. With the card's name and power limit.
 """
 
 import ctypes
+import hashlib
 import os
 import statistics
 import sys
@@ -135,15 +138,19 @@ def main():
                  f'memory a block; {info[3]} such clusters fit on the card')
 
   rng = np.random.default_rng(7)
+  digest = hashlib.sha256()
   for t, n in SHAPES:
     a = torch.from_numpy(chip_smoke.spd_batch(rng, t, n)).to(dev)
     got = chol_panel.launch_chol_panel(a)
+    digest.update(got.cpu().numpy().tobytes())
     err = float((got.double() - chol_panel.cholesky_panel_plain(
         a.double())).abs().max())
     chip_smoke.log(f'K7 ({t}, {n}, {n}): max abs err vs float64 plain '
                    f'{err:.3e}')
     if not err <= chip_smoke.L_ATOL:
       raise AssertionError(f'K7 error {err} at ({t}, {n})')
+  chip_smoke.log(f'K7 output digest at the shapes above: '
+                 f'{digest.hexdigest()}')
   bad = chip_smoke.spd_batch(rng, 3, 300)
   bad[1, -1, -1] = -5.0
   got = chol_panel.launch_chol_panel(torch.from_numpy(bad).to(dev))
