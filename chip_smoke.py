@@ -22,7 +22,8 @@ exits non-zero and the final ok line is never printed:
      n = 512 (SE, d = 4), n = 700 (Matern-3/2, masked, padded to 704),
      n = 5000 (SE, d = 8, masked, padded to 5056: 79 tiles, the ragged
      level schedule of K3) and n = 8192 (SE, d = 8); two K3 calls at
-     n = 8192 bitwise equal; NaN for a non-PD input; the median time of
+     n = 8192 bitwise equal, and the digest of that T (the same on every
+     build of K3's arithmetic); NaN for a non-PD input; the median time of
      each kernel and its plain version at n = 8192;
   6. the large-n training path: GP.train() with config['fused_mll'] on 2
      tasks of 8192 and 5000 rows x 8-d inputs (SE kernel, constant mean,
@@ -53,10 +54,14 @@ exits non-zero and the final ok line is never printed:
      the routes agree with cuSOLVER (NLL, partial EKL, EUC rtol 1e-4; full
      EKL rtol 1e-3: its whitened covariance amplifies float32 rounding);
   10. K8 (the joint backward) against its float64 plain version and against
-     K3 + alpha + K4 on the card, on phase 5's inputs and the float32
-     rounding of their float64 factor (max rel 5e-3 for d_x, alpha, d_sv
-     and d_da); NaN outputs for a NaN in L; the median time of K8, its
-     plain version and K3 + alpha + K4 at n = 8192;
+     K3 + alpha + K4 on the card, on the float32 rounding of the float64
+     factor of phase 5's inputs at n = 512, 704 (700 rows, masked), 5056
+     (5000 rows, masked: 79 tiles) and 8192, each for SE and a Matern
+     family (max rel 5e-3 for d_x, alpha, d_sv and d_da); each call one
+     launch, and the T it leaves in its scratch bitwise equal to K3's; NaN
+     outputs for a NaN in L; two calls at n = 8192 bitwise equal; the
+     median time of K8, its plain version and K3 + alpha + K4 at n = 8192,
+     in the same turns;
   11. the K8 path: phase 6's training with HYPERBO_BWD_JOINT=1 (set here
      and restored after), which launches K2 and K8 once per task per step
      and K3 and K4 never, and whose loss trace matches phase 6's (rtol
@@ -74,6 +79,7 @@ exits non-zero and the final ok line is never printed:
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
 
+import hashlib
 import json
 import os
 import statistics
@@ -346,6 +352,11 @@ def _rel(a, b):
   return float((a - b).abs().max() / b.abs().max())
 
 
+def digest(t):
+  """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+  return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def _turns(runs, **fns):
   """Median ms of each function, timed in turns: in the order given, then
   in reverse (plain, kernel, kernel, plain for two), `runs` each turn."""
@@ -451,10 +462,11 @@ def phase_fused_kernels(dev):
     worst['mll_bwd'] = max(worst['mll_bwd'], errs['P_abs'])
     big = inputs
   # K3 sums in a fixed order (no atomics, no split-k).
-  if not torch.equal(tri_inv.launch_tri_inv(big['l']),
-                     tri_inv.launch_tri_inv(big['l'])):
+  t_big = tri_inv.launch_tri_inv(big['l'])
+  if not torch.equal(t_big, tri_inv.launch_tri_inv(big['l'])):
     raise AssertionError('K3: two calls at n=8192 differ')
-  log('K3 two calls at n=8192: bitwise equal')
+  log(f'K3 two calls at n=8192: bitwise equal; output digest '
+      f'{digest(t_big)}')
 
   # Not positive definite (da < 0): NaN value, NaN-or-zero gradients.
   rng = np.random.default_rng(4)
@@ -651,18 +663,27 @@ def joint_route(l, x, delta, sv, kfam, valid=None):
 
 def phase_joint_kernel(dev):
   """Phase 10: K8 against its float64 plain version and against K3 +
-  alpha + K4 on the same float32 factor, NaN for a NaN factor, timing at
+  alpha + K4 on the same float32 factor, its T against K3's, one launch a
+  call, NaN for a NaN factor, two calls bitwise equal, timing at
   n = 8192."""
-  from hyperbo_tpu_torch.ops import bwd_joint
+  from hyperbo_tpu_torch.ops import bwd_joint, tri_inv
   names = ('d_x', 'alpha', 'dsv_raw', 'd_da')
   worst = 0.0
-  for n, d, kfam, seed in ((512, 4, 'se', 1), (700, 3, 'matern32', 2),
+  for n, d, kfam, seed in ((512, 4, 'se', 1), (512, 4, 'matern52', 5),
+                           (700, 3, 'matern32', 2),
+                           (5000, FUSED_DIM, 'se', 4),
+                           (5000, FUSED_DIM, 'matern32', 6),
+                           (8192, FUSED_DIM, 'matern52', 7),
                            (8192, FUSED_DIM, 'se', 3)):
     ins32, ins64 = fused_inputs(dev, n, d, seed)
     x32, y32, sv32, _, v32 = ins32
     x64, y64, sv64, _, v64 = ins64
     l_in = input_factor(ins64, kfam)[3]
-    got = bwd_joint.launch_mll_bwd_joint(l_in, x32, y32, sv32, kfam, v32)
+    before = bwd_joint.KERNEL.launches
+    # pylint: disable-next=protected-access
+    got, t_joint = bwd_joint._launch(l_in, x32, y32, sv32, kfam, v32)
+    launches = bwd_joint.KERNEL.launches - before
+    t_same = torch.equal(t_joint, tri_inv.launch_tri_inv(l_in))
     want = bwd_joint.mll_bwd_joint_plain(l_in.double(), x64, y64, sv64, kfam,
                                          v64)
     route = joint_route(l_in, x32, y32, sv32, kfam, v32)
@@ -671,22 +692,31 @@ def phase_joint_kernel(dev):
     rel_route = {k: _rel(a, b) for k, a, b in zip(names, got, route)}
     worst = max([worst] + [float((a.double() - b).abs().max())
                            for a, b in zip(got[:2], want[:2])])
-    log(f'K8 n={n} d={d} {kfam}' + (' masked' if v32 is not None else '') +
-        ': max rel vs float64 ' +
+    log(f'K8 n={l_in.shape[0]} d={d} {kfam}' +
+        (' masked' if v32 is not None else '') + ': max rel vs float64 ' +
         ', '.join(f'{k} {v:.3e}' for k, v in rel.items()) +
         '; vs K3 + alpha + K4 ' +
-        ', '.join(f'{k} {v:.3e}' for k, v in rel_route.items()))
+        ', '.join(f'{k} {v:.3e}' for k, v in rel_route.items()) +
+        f'; launches {launches}; T bitwise K3\'s {t_same}')
     for key in names:
       if not (rel[key] <= GRAD_MAX_REL and rel_route[key] <= GRAD_MAX_REL):
         raise AssertionError(f'K8 {key} at n={n} {kfam}: {rel[key]} vs '
                              f'float64, {rel_route[key]} vs K3 + K4')
-    if n == 512:
+    if not (launches == 1 and t_same):
+      raise AssertionError(f'K8 at n={n} {kfam}: {launches} launches, T '
+                           f'equal to K3\'s {t_same}')
+    if n in (512, 5000) and kfam == 'se':
       bad = l_in.clone()
       bad[-1, 0] = float('nan')
       outs = bwd_joint.launch_mll_bwd_joint(bad, x32, y32, sv32, kfam, v32)
       if not all(bool(torch.isnan(o).all()) for o in outs):
         raise AssertionError('K8 must give NaN outputs for a NaN factor')
-      log('K8 NaN in L: NaN outputs')
+      log(f'K8 NaN in L at n={l_in.shape[0]}: NaN outputs')
+  # The SE case at n = 8192 is the last: deterministic, then timed.
+  again = bwd_joint.launch_mll_bwd_joint(l_in, x32, y32, sv32, kfam, v32)
+  if not all(torch.equal(a, b) for a, b in zip(got, again)):
+    raise AssertionError('K8: two calls at n=8192 differ')
+  log('K8 two calls at n=8192: bitwise equal')
   ms = _turns(
       FUSED_TIMED_RUNS,
       plain=lambda: bwd_joint.mll_bwd_joint_plain(l_in, x32, y32, sv32, kfam),
@@ -694,8 +724,9 @@ def phase_joint_kernel(dev):
                                                     kfam),
       route=lambda: joint_route(l_in, x32, y32, sv32, kfam))
   log(f'mll_bwd_joint time at n=8192 (median of {2 * FUSED_TIMED_RUNS} '
-      f'each): kernel {ms["kernel"]:.3f} ms, plain {ms["plain"]:.3f} ms, '
-      f'K3 + alpha + K4 {ms["route"]:.3f} ms')
+      f'each, in the same turns): kernel {ms["kernel"]:.3f} ms, plain '
+      f'{ms["plain"]:.3f} ms, K3 + alpha + K4 {ms["route"]:.3f} ms; kernel '
+      f'/ K3 + alpha + K4 {ms["kernel"] / ms["route"]:.3f}')
   return worst, ms
 
 

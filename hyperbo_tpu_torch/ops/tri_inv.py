@@ -14,19 +14,25 @@ diagonal tiles' inverses from `diag_inverses`) or raises; a CPU tensor goes
 through the plain PyTorch version `tri_inv_plain`, the n-RHS triangular
 solve that the JAX package's CPU default takes (pallas_mll._tri_inv).
 There is no fallback from one to the other. `tri_inv_levels` is the
-kernel's algorithm in plain PyTorch, for the tests.
+kernel's algorithm in plain PyTorch, for the tests: `level_products`, the
+block tiles of each level in the kernel's order, each run by
+`apply_product`. The joint backward's mirror (ops/bwd_joint) runs the same
+products.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Tuple
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from hyperbo_tpu_torch.ops import _build
 
 TILE = 64
+# csrc/tri_inv_core.cuh kBigHalf: merges of halves at least this many tiles
+# wide use block tiles of 2 x 2 tiles.
+BIG_HALF = 8
 
 KERNEL = _build.CudaKernel(
     'tri_inv.cu', 'hyperbo_tri_inv',
@@ -65,34 +71,96 @@ def merges(nb: int) -> List[List[Tuple[int, int, int]]]:
   return levels
 
 
+class Product(NamedTuple):
+  """One block tile of a level's products (csrc/tri_inv_core.cuh), in
+  elements of its merge (a0, c0, c1) (in tiles: A = [a0, c0), C = [c0, c1)):
+
+    'w'  W[rows, cols] = L[C, A][rows, ks] @ T_A[ks, cols]
+    't'  T[C, A][rows, cols] = -T_C[rows, ks] @ W[ks, cols]
+
+  W of merge z is the row-major (|C|, |A|) block of the scratch at
+  w_base."""
+  kind: str
+  merge: Tuple[int, int, int]
+  z: int
+  w_base: int
+  rows: Tuple[int, int]
+  cols: Tuple[int, int]
+  ks: Tuple[int, int]
+
+
+def level_products(nb: int, block: int = TILE
+                   ) -> List[Tuple[List[Product], List[Product]]]:
+  """Per level (run in order): its W tiles, then its T tiles, each in the
+  kernel's block order (heaviest first; W by row tile, then column tile,
+  then merge; T by column tile, then row tile from the last, then merge).
+  Block tiles are 2 x 2 tiles where the half is at least BIG_HALF tiles,
+  one tile below; a row tile past C's last row has no product."""
+  levels = []
+  for level in merges(nb):
+    half = level[0][1] - level[0][0]
+    bm = 2 * block if half >= BIG_HALF else block
+    width = half * block
+    rows, cols = -(-width // bm), width // bm
+    w_items, t_items = [], []
+    for z, merge in enumerate(level):
+      m = (merge[2] - merge[1]) * block
+      base = z * width * width
+      for y in range(cols):
+        for x in range(rows):
+          if x * bm < m:
+            w_items.append(Product(
+                'w', merge, z, base, (x * bm, min(x * bm + bm, m)),
+                (y * bm, y * bm + bm), (y * bm, width)))
+      for y in range(rows):
+        r0 = (rows - 1 - y) * bm
+        for x in range(cols):
+          if r0 < m:
+            r1 = min(r0 + bm, m)
+            t_items.append(Product('t', merge, z, base, (r0, r1),
+                                   (x * bm, x * bm + bm), (0, r1)))
+    levels.append((w_items, t_items))
+  return levels
+
+
+def apply_product(l: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
+                  p: Product, block: int = TILE):
+  """Runs one block tile p on L, T (updated in place) and the flat W
+  scratch w (tiles of `block` rows)."""
+  a0, c0, c1 = (v * block for v in p.merge)
+  wz = w[p.w_base:p.w_base + (c1 - c0) * (c0 - a0)].view(c1 - c0, c0 - a0)
+  (r0, r1), (q0, q1), (k0, k1) = p.rows, p.cols, p.ks
+  if p.kind == 'w':
+    wz[r0:r1, q0:q1] = (l[c0 + r0:c0 + r1, a0 + k0:a0 + k1] @
+                        t[a0 + k0:a0 + k1, a0 + q0:a0 + q1])
+  else:
+    t[c0 + r0:c0 + r1, a0 + q0:a0 + q1] = -(
+        t[c0 + r0:c0 + r1, c0 + k0:c0 + k1] @ wz[k0:k1, q0:q1])
+
+
 def tri_inv_levels(l: torch.Tensor, block: int = TILE) -> torch.Tensor:
   """Plain mirror of the kernel's algorithm (tests run it in float64):
-  T_jj = D_j (diag_inverses), then, level by level, each merge writes
-  T[C, A] = -T_C (L[C, A] T_A), each product skipping the zero triangle
-  of its triangular factor one `block` of columns (rows) at a time, as the
-  kernel does one block tile at a time."""
+  T_jj = D_j (diag_inverses), zeros elsewhere, then each level's W tiles
+  and T tiles (level_products), each product skipping the zero triangle
+  of its triangular factor by its k range, as the kernel does."""
   b = block
+  n = l.shape[-1]
   t = torch.zeros_like(l)
   for j, d in enumerate(diag_inverses(l, b)):
     t[j * b:(j + 1) * b, j * b:(j + 1) * b] = d
-  for level in merges(l.shape[-1] // b):
-    for a0, c0, c1 in level:
-      a = slice(a0 * b, c0 * b)
-      c = slice(c0 * b, c1 * b)
-      l_ca, t_a, t_c = l[c, a], t[a, a], t[c, c]
-      w = torch.cat([l_ca[:, k:] @ t_a[k:, k:k + b]
-                     for k in range(0, t_a.shape[0], b)], dim=1)
-      t[c, a] = -torch.cat([t_c[r:r + b, :r + b] @ w[:r + b]
-                            for r in range(0, t_c.shape[0], b)])
+  w = torch.empty(scratch_floats(n, b), dtype=l.dtype, device=l.device)
+  for w_items, t_items in level_products(n // b, b):
+    for p in w_items + t_items:
+      apply_product(l, t, w, p, b)
   return t
 
 
-def scratch_floats(n: int) -> int:
+def scratch_floats(n: int, block: int = TILE) -> int:
   """Floats of the kernel's scratch: the largest level's W = L[C, A] T_A
   over all its merges (at most n^2 / 4)."""
   sizes = [sum((c1 - c0) * (c0 - a0) for a0, c0, c1 in level)
-           for level in merges(n // TILE)]
-  return max(sizes, default=0) * TILE * TILE
+           for level in merges(n // block)]
+  return max(sizes, default=0) * block * block
 
 
 def launch_tri_inv(l: torch.Tensor) -> torch.Tensor:

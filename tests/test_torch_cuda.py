@@ -21,7 +21,8 @@ the NLL and the partial EKL, and 1e-3 for the full EKL, whose whitened
 covariance amplifies the factorizations' float32 rounding. The joint
 backward K8 against its float64 plain version and against the K3 + alpha +
 K4 route on the card: d_x, alpha and the two scalars within 5e-3 of their
-largest entry (the gradient parity bound). The Gram kernel K5 against its
+largest entry (the gradient parity bound), and the T it computes bitwise
+K3's (the same level bodies). The Gram kernel K5 against its
 float64 plain version within atol 2e-5 sv (tests/test_pallas_gram.py).
 """
 
@@ -370,6 +371,29 @@ def test_joint_backward_matches_plain_and_route(cuda_device, n, d, n_valid,
   bad[-1, 0] = float('nan')
   for out in bwd_joint.mll_bwd_joint(bad, x, y, sv, kfam, v):
     assert bool(torch.isnan(out).all())
+
+
+@pytest.mark.cuda
+def test_joint_backward_inverse_is_k3s_and_deterministic(cuda_device):
+  """K8 at a ragged, masked 19-tile size (1200 rows padded to 1216: 128 x
+  128 products at halves of 8 and 16 tiles, a short last merge): the T it
+  leaves in its scratch is bitwise K3's, and two calls, one launch each,
+  give bitwise equal outputs."""
+  x, y, sv, da, v = _fused_inputs(14, 1216, 8, 1200, cuda_device,
+                                  torch.float32)
+  chol64, _, _ = fused_mll.mll_fused_plain(x.double(), y.double(),
+                                           sv.double(), da.double(), 'se',
+                                           v.double())
+  l_in = chol64.float().contiguous()
+  before = bwd_joint.KERNEL.launches
+  # pylint: disable-next=protected-access
+  first, t = bwd_joint._launch(l_in, x, y, sv, 'se', v)
+  second = bwd_joint.mll_bwd_joint(l_in, x, y, sv, 'se', v)
+  torch.cuda.synchronize()
+  assert bwd_joint.KERNEL.launches == before + 2
+  assert torch.equal(t, tri_inv.tri_inv(l_in))
+  for a, b in zip(first, second):
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
