@@ -23,8 +23,11 @@ exits non-zero and the final ok line is never printed:
      n = 5000 (SE, d = 8, masked, padded to 5056: 79 tiles, the ragged
      level schedule of K3) and n = 8192 (SE, d = 8); two K3 calls at
      n = 8192 bitwise equal, and the digest of that T (the same on every
-     build of K3's arithmetic); NaN for a non-PD input; the median time of
-     each kernel and its plain version at n = 8192;
+     build of K3's arithmetic); NaN for a non-PD input; two K2 calls at
+     n = 8192 bitwise equal, one wrapper launch each, and the digest of
+     that L; the median time of each kernel and its plain version at
+     n = 8192, and beside K2 torch.linalg.cholesky of the same K (the Gram
+     built outside the timing) as the factor's yardstick;
   6. the large-n training path: GP.train() with config['fused_mll'] on 2
      tasks of 8192 and 5000 rows x 8-d inputs (SE kernel, constant mean,
      batch 8192, 5 Adam steps; the second task runs masked at n = 8192);
@@ -33,14 +36,15 @@ exits non-zero and the final ok line is never printed:
   7. objectives.neg_log_marginal_likelihood value and gradient at n = 8192
      through the kernels against the dense route in float64 (value rtol
      1e-4, max rel 5e-3 per gradient leaf), and one value and gradient at
-     n = 16384, finite, with its time;
+     n = 16384, finite, with the time of a first and a second call;
   8. K7 and K6 (the dense Cholesky kernels) against their float64 plain
      versions on the card (atol 5e-4): K7 at n = 1, 37, 64, 65, 128, 300,
      511, 512 (clusters of 1 to 8 blocks, ragged last block columns) and a
      (23, 100, 100) batch, K6 at n = 64, 576, 1024, 2048, 4096 and a batch
      of two at 1024; NaN for a non-PD middle matrix of a batch of three,
-     and only there; each one launch a call and two calls bitwise equal
-     (K7 at (1, 512, 512), K6 at (1, 1024, 1024)); the time of each, its
+     and only there; each one launch a call and two calls bitwise equal,
+     with that output's digest (K7 at (1, 512, 512), K6 at
+     (1, 1024, 1024)); the time of each, its
      plain version and torch.linalg.cholesky at the shapes of phase 9, and
      of K6 also at (2, 1024, 1024), (1, 2048, 2048) and (1, 4096, 4096);
   9. the EKL slice at PD1 width: one nll_regkl(1.) step's loss on the card
@@ -468,7 +472,67 @@ def phase_fused_kernels(dev):
   log(f'K3 two calls at n=8192: bitwise equal; output digest '
       f'{digest(t_big)}')
 
-  # Not positive definite (da < 0): NaN value, NaN-or-zero gradients.
+  fused_nonpd_check(dev)
+  # K2's entries are each one sum in a fixed order (no atomics): two calls
+  # give the same bits, through one wrapper launch each.
+  b = big
+  before = fused_mll.KERNEL.launches
+  first = fused_mll.launch_mll_fused(b['x'], b['y'], b['sv'], b['da'])
+  k2_launches = fused_mll.KERNEL.launches - before
+  second = fused_mll.launch_mll_fused(b['x'], b['y'], b['sv'], b['da'])
+  if not (all(torch.equal(u, v) for u, v in zip(first, second)) and
+          k2_launches == 1):
+    raise AssertionError(f'K2: two calls at n=8192 differ, or '
+                         f'{k2_launches} launches a call')
+  log(f'K2 two calls at n=8192: bitwise equal, one launch each; output '
+      f'digest {digest(first[0])}')
+  del first, second
+
+  # One library call computes K3's function: the n-RHS triangular solve.
+  # None computes K2's (Gram, Cholesky, solve and logdet): the Cholesky of
+  # the same K (built outside the timing) is timed beside it as the
+  # factor's yardstick.
+  eye = torch.eye(b['l'].shape[0], device=dev)
+  gram = fused_gram(b['x'], b['sv'], b['da'])
+  times = {
+      'fused_mll': _turns(
+          FUSED_TIMED_RUNS,
+          plain=lambda: fused_mll.mll_fused_plain(b['x'], b['y'], b['sv'],
+                                                  b['da'], b['kfam']),
+          kernel=lambda: fused_mll.launch_mll_fused(b['x'], b['y'], b['sv'],
+                                                    b['da'], b['kfam']),
+          cholesky=lambda: torch.linalg.cholesky(gram)),
+      'tri_inv': _turns(
+          FUSED_TIMED_RUNS, plain=lambda: tri_inv.tri_inv_plain(b['l']),
+          kernel=lambda: tri_inv.launch_tri_inv(b['l']),
+          library=lambda: torch.linalg.solve_triangular(b['l'], eye,
+                                                        upper=False)),
+      'mll_bwd': _turns(
+          FUSED_TIMED_RUNS,
+          plain=lambda: mll_bwd.mll_bwd_plain(b['t'], b['x'], b['alpha'],
+                                              b['sv'], b['kfam']),
+          kernel=lambda: mll_bwd.launch_mll_bwd(b['t'], b['x'], b['alpha'],
+                                                b['sv'], b['kfam'])),
+  }
+  del gram
+  for name, ms in times.items():
+    log(f'{name} time at n=8192 (median of {2 * FUSED_TIMED_RUNS} each): ' +
+        ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items()))
+  return worst, times
+
+
+def fused_gram(x, sv, da):
+  """The SE Gram K = sv k + da I of x as K2 builds it (unmasked)."""
+  from hyperbo_tpu_torch.ops import fused_mll, mll_bwd
+  # pylint: disable-next=protected-access
+  kmat = fused_mll._gram_transform(mll_bwd.raw_sqdist(x), sv, 'se')
+  return kmat + da * torch.eye(x.shape[0], dtype=x.dtype, device=x.device)
+
+
+def fused_nonpd_check(dev):
+  """Not positive definite (da < 0): NaN value, NaN-or-zero gradients
+  through K2 and the default backward."""
+  from hyperbo_tpu_torch.ops import fused_mll
   rng = np.random.default_rng(4)
   x = torch.tensor(rng.uniform(size=(512, 4)) * 2.0, dtype=torch.float32,
                    device=dev, requires_grad=True)
@@ -484,33 +548,6 @@ def phase_fused_kernels(dev):
     if not bool((torch.isnan(g) | (g == 0)).all()):
       raise AssertionError('non-PD gradient is neither NaN nor zero')
   log('K2-K4 non-PD input (da = -0.5): NaN value, NaN gradients')
-
-  b = big
-  # One library call computes K3's function: the n-RHS triangular solve.
-  eye = torch.eye(b['l'].shape[0], device=dev)
-  times = {
-      'fused_mll': _turns(
-          FUSED_TIMED_RUNS,
-          plain=lambda: fused_mll.mll_fused_plain(b['x'], b['y'], b['sv'],
-                                                  b['da'], b['kfam']),
-          kernel=lambda: fused_mll.launch_mll_fused(b['x'], b['y'], b['sv'],
-                                                    b['da'], b['kfam'])),
-      'tri_inv': _turns(
-          FUSED_TIMED_RUNS, plain=lambda: tri_inv.tri_inv_plain(b['l']),
-          kernel=lambda: tri_inv.launch_tri_inv(b['l']),
-          library=lambda: torch.linalg.solve_triangular(b['l'], eye,
-                                                        upper=False)),
-      'mll_bwd': _turns(
-          FUSED_TIMED_RUNS,
-          plain=lambda: mll_bwd.mll_bwd_plain(b['t'], b['x'], b['alpha'],
-                                              b['sv'], b['kfam']),
-          kernel=lambda: mll_bwd.launch_mll_bwd(b['t'], b['x'], b['alpha'],
-                                                b['sv'], b['kfam'])),
-  }
-  for name, ms in times.items():
-    log(f'{name} time at n=8192 (median of {2 * FUSED_TIMED_RUNS} each): ' +
-        ', '.join(f'{k} {v:.3f} ms' for k, v in ms.items()))
-  return worst, times
 
 
 def fused_data(seed=5):
@@ -646,8 +683,9 @@ def phase_fused_objective(dev, card):
   if not (np.isfinite(val) and all(bool(torch.isfinite(g).all())
                                    for g in grads)):
     raise AssertionError(f'n=16384 value+grad not finite: {val}')
-  log(f'n=16384 value+grad through K2-K4: {ms:.3f} ms (first call), value '
-      f'{val:.4f} [{card}]')
+  again = _value_and_grad(data, torch.float32, dev, True)[2]
+  log(f'n=16384 value+grad through K2-K4: {ms:.3f} ms (first call), '
+      f'{again:.3f} ms (second), value {val:.4f} [{card}]')
   return ms
 
 
@@ -870,7 +908,8 @@ def phase_dense_kernels(dev):
       raise AssertionError(f'{name} must be one launch a call')
     if not torch.equal(first, launch[name](a)):
       raise AssertionError(f'{name}: two calls at (1, {n}, {n}) differ')
-    log(f'{name} (1, {n}, {n}): one launch a call, two calls bitwise equal')
+    log(f'{name} (1, {n}, {n}): one launch a call, two calls bitwise equal; '
+        f'output digest {digest(first)}')
 
   times = {}
   for name, n in (('chol_panel', 512), ('chol_hbm', ALIGNED_POINTS)):

@@ -84,12 +84,12 @@
 #include <atomic>
 
 #include "chol_diag64.cuh"
+#include "chol_persistent.cuh"
 #include "gemm_core.cuh"
 
 namespace {
 
 using namespace hyperbo::chol64;
-using hyperbo::cp_async16;
 using hyperbo::cp_async_commit;
 using hyperbo::cp_async_wait_one;
 
@@ -145,64 +145,6 @@ __device__ __forceinline__ float* panel_at(const Geometry& g, int b, int k) {
   return g.panel + (static_cast<long long>(b) * g.nb + k) * kPanelFloats;
 }
 
-__device__ __forceinline__ int ld_relaxed(const int* p) {
-  int v;
-  asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
-               : "=r"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void st_relaxed(int* p, int v) {
-  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_acq_rel() {
-  asm volatile("fence.acq_rel.gpu;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Spins until *flag >= want. A wait that outlasts any real one (2^26
-// polls) traps, so a fault in the schedule ends the launch with an error
-// instead of hanging the card.
-__device__ __forceinline__ void spin_until(const int* flag, int want) {
-  for (unsigned polls = 0; ld_relaxed(flag) < want; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    __nanosleep(32);
-  }
-}
-
-// After the writer block's barrier: its stores are released with the
-// counter's new value.
-__device__ __forceinline__ void release(int* flag, int value) {
-  fence_acq_rel();
-  st_relaxed(flag, value);
-}
-
-// A 64 x 64 tile of a row-major matrix (row stride ld) into shared rows kLd
-// apart, by cp.async (L2 only) from kN threads.
-template <int kN>
-__device__ __forceinline__ void copy_tile_async(float* dst, const float* src,
-                                                long long ld, int t) {
-  for (int idx = t; idx < kB * kB / 4; idx += kN) {
-    const int r = idx / (kB / 4);
-    const int c = 4 * (idx % (kB / 4));
-    cp_async16(dst + r * kLd + c, src + r * ld + c);
-  }
-}
-
-// `count` contiguous floats (a multiple of 4) by cp.async.
-template <int kN>
-__device__ __forceinline__ void copy_async(float* dst, const float* src,
-                                           int count, int t) {
-  for (int c = 4 * t; c < count; c += 4 * kN) cp_async16(dst + c, src + c);
-}
-
 // The lower triangle of a diagonal tile of A, zeros above: A's upper
 // triangle is never read.
 template <int kN>
@@ -223,89 +165,20 @@ __device__ __forceinline__ void fetch_tile(const Geometry& g, int b, int i,
                                            int t) {
   const long long at = tile_at(g, b, i, j);
   if (version > 0) {
-    copy_tile_async<kN>(dst, g.l + at, g.n, t);
+    copy_rows_async<kN>(dst, g.l + at, g.n, kB, t);
   } else if (i == j) {
     load_lower_tile<kN>(dst, g.a + at, g.n, t);
   } else {
-    copy_tile_async<kN>(dst, g.a + at, g.n, t);
-  }
-}
-
-// Shared rows kLd apart to a 64 x 64 tile of l; `lower` zeroes the entries
-// above the diagonal.
-template <int kN>
-__device__ __forceinline__ void store_tile(float* dst, long long ld,
-                                           const float* src, bool lower,
-                                           int t) {
-  for (int idx = t; idx < kB * kB / 4; idx += kN) {
-    const int r = idx / (kB / 4);
-    const int c = 4 * (idx % (kB / 4));
-    float4 v = ld4(src + r * kLd + c);
-    if (lower) {
-      if (c > r) v.x = 0.0f;
-      if (c + 1 > r) v.y = 0.0f;
-      if (c + 2 > r) v.z = 0.0f;
-      if (c + 3 > r) v.w = 0.0f;
-    }
-    st4(dst + r * ld + c, v);
+    copy_rows_async<kN>(dst, g.a + at, g.n, kB, t);
   }
 }
 
 // Rows 64 .. rows - 1 of a block column (shared rows kLd apart) <- x L^-T,
-// one row a thread, by 16-column groups: a group is solved in registers
-// (scale column j by 1 / sqrt(p_j), take x_j L[c][j] from the group's later
-// columns), then its products leave the row's later groups, one group at a
-// time. Each entry takes solve_panel's operations in solve_panel's order,
-// so the same bits, from loops whose bodies stay in the instruction cache:
-// solve_panel's unrolled 64-column sweep (some 40 KB of code, run once a
-// step) was fetched afresh each step and took three times as long.
+// one row a thread (solve_row).
 __device__ void solve_rows(float* col, int rows, const float* lt,
                            const float* rdiag) {
   for (int i = kB + static_cast<int>(threadIdx.x); i < rows; i += kThreads) {
-    float* row = col + i * kLd;
-#pragma unroll 1
-    for (int g = 0; g < kB; g += kS) {
-      float x[kS];
-      load_s(row + g, x);
-#pragma unroll
-      for (int j = 0; j < kS; ++j) {
-        x[j] *= rdiag[g + j];
-        const float* lj = lt + (g + j) * kB + g;
-#pragma unroll
-        for (int c4 = (j + 1) / 4 * 4; c4 < kS; c4 += 4) {
-          const float4 l4 = ld4(lj + c4);
-          if (c4 > j) x[c4] = fmaf(-x[j], l4.x, x[c4]);
-          if (c4 + 1 > j) x[c4 + 1] = fmaf(-x[j], l4.y, x[c4 + 1]);
-          if (c4 + 2 > j) x[c4 + 2] = fmaf(-x[j], l4.z, x[c4 + 2]);
-          if (c4 + 3 > j) x[c4 + 3] = fmaf(-x[j], l4.w, x[c4 + 3]);
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < kS; m += 4) {
-        st4(row + g + m, make_float4(x[m], x[m + 1], x[m + 2], x[m + 3]));
-      }
-#pragma unroll 1
-      for (int h = g + kS; h < kB; h += kS) {
-        float y[kS];
-        load_s(row + h, y);
-#pragma unroll
-        for (int j = 0; j < kS; ++j) {
-          const float* lj = lt + (g + j) * kB + h;
-#pragma unroll
-          for (int c4 = 0; c4 < kS; c4 += 4) {
-            const float4 l4 = ld4(lj + c4);
-            y[c4] = fmaf(-x[j], l4.x, y[c4]);
-            y[c4 + 1] = fmaf(-x[j], l4.y, y[c4 + 1]);
-            y[c4 + 2] = fmaf(-x[j], l4.z, y[c4 + 2]);
-            y[c4 + 3] = fmaf(-x[j], l4.w, y[c4 + 3]);
-          }
-        }
-#pragma unroll
-        for (int m = 0; m < kS; m += 4) {
-          st4(row + h + m, make_float4(y[m], y[m + 1], y[m + 2], y[m + 3]));
-        }
-      }
-    }
+    solve_row(col + i * kLd, lt, rdiag);
   }
 }
 
@@ -370,7 +243,7 @@ __device__ void run_chain(const Geometry& g, int b, float* smem,
       }
       sync_bar<2>();
       if (t == 0) release(counter(g, b, k, k), k + 1);
-      store_tile<kHalf>(g.l + tile_at(g, b, k, k), g.n, diag, true, t);
+      store_rows<kHalf>(g.l + tile_at(g, b, k, k), g.n, diag, kB, true, t);
     }
     __syncthreads();
     laps.add(kSlotChainSolve);
@@ -382,8 +255,8 @@ __device__ void run_chain(const Geometry& g, int b, float* smem,
     } else {
       const int t = tid - kHalf;
       for (int r = 0; r < rows; ++r) {
-        store_tile<kHalf>(g.l + tile_at(g, b, k + 1 + r, k), g.n,
-                          below + r * kTileFloats, false, t);
+        store_rows<kHalf>(g.l + tile_at(g, b, k + 1 + r, k), g.n,
+                          below + r * kTileFloats, kB, false, t);
       }
       sync_bar<2>();
       if (t == 0) {
@@ -564,7 +437,8 @@ __device__ __forceinline__ void run_task(const Geometry& g, const Task& s,
     solve_rows(stage, 2 * kB, stage + 2 * kTileFloats, stage);
     __syncthreads();
     laps.add(kSlotWorkerSolve);
-    store_tile<kThreads>(g.l + tile_at(g, s.b, s.i, s.k), g.n, x, false, tid);
+    store_rows<kThreads>(g.l + tile_at(g, s.b, s.i, s.k), g.n, x, kB, false,
+                         tid);
     if (tid == 0) {
       spin_until(counter(g, s.b, s.k + 1, s.k), s.k + 1);
       spin_until(counter(g, s.b, s.i, s.k + 1), s.k);
@@ -582,8 +456,8 @@ __device__ __forceinline__ void run_task(const Geometry& g, const Task& s,
     tile_product<kThreads>(target, kB, 0, x, stage + 4 * kTileFloats, tid);
     __syncthreads();
     laps.add(kSlotWorkerUpdate);
-    store_tile<kThreads>(g.l + tile_at(g, s.b, s.i, s.k + 1), g.n, target,
-                         false, tid);
+    store_rows<kThreads>(g.l + tile_at(g, s.b, s.i, s.k + 1), g.n, target,
+                         kB, false, tid);
     __syncthreads();
     if (tid == 0) {
       fence_acq_rel();
@@ -597,8 +471,8 @@ __device__ __forceinline__ void run_task(const Geometry& g, const Task& s,
   tile_product<kThreads>(stage, kB, 0, stage + kTileFloats, lj, tid);
   __syncthreads();
   laps.add(kSlotWorkerUpdate);
-  store_tile<kThreads>(g.l + tile_at(g, s.b, s.i, s.j), g.n, stage, false,
-                       tid);
+  store_rows<kThreads>(g.l + tile_at(g, s.b, s.i, s.j), g.n, stage, kB,
+                       false, tid);
   __syncthreads();
   if (tid == 0) release(counter(g, s.b, s.i, s.j), s.k + 1);
 }

@@ -7,12 +7,22 @@ For scaled inputs x (n, d) and delta = y - mu (n, 1) the forward computes
     K = sv k(|x_i - x_j|^2) + da I,   L = chol(K),   z = L^{-1} delta,
     nll_core = |z|^2 / 2 + sum_j log L_jj
 
-in one call (`mll_fused`: Gram tiles generated on the device, blocked
-Cholesky, forward solve and log-determinant), for the SE, Matern-3/2 and
-Matern-5/2 families. The backward is the JAX package's closed form
-(_se_core_bwd) from the saved factor: T = L^{-1} (ops/tri_inv, kernel K3),
-alpha = T^T (T delta), then P = [W x | W 1], d_sv_raw and d_da from kernel
-K4 (ops/mll_bwd), and
+in one call (`mll_fused`), for the SE, Matern-3/2 and Matern-5/2 families.
+The kernel (csrc/fused_mll.cu) is two launches: the Gram tiles, then one
+persistent cooperative launch that factors right-looking in 128-wide steps.
+A chain block factors each 128 x 128 diagonal tile, solves the tile below
+it and updates the next diagonal tile ahead of the rest (lookahead), and
+forms z and the float64 sums of |z|^2 and log L_jj on the way; every other
+block solves the panel's other tiles and runs the 128- and 256-deep
+trailing updates from a fixed list, ordered by per-tile counters in global
+memory. `fused_tasks` is that list (the wrapper passes it to the kernel as
+a table, `task_table`), `fused_schedule` the blocks' shares of it beside
+the chain's parts, and `mll_fused_steps` its float64 mirror, which only the
+tests run.
+
+The backward is the JAX package's closed form (_se_core_bwd) from the saved
+factor: T = L^{-1} (ops/tri_inv, kernel K3), alpha = T^T (T delta), then
+P = [W x | W 1], d_sv_raw and d_da from kernel K4 (ops/mll_bwd), and
 
     d_x = 2 [(W x) - (W 1) o x],   d_delta = alpha,
     d_sv = d_sv_raw / sv,          d_da = tr G.
@@ -40,11 +50,14 @@ a multiple of the kernels' 64-row tile is padded up to one this way.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import math
 import os
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from hyperbo_tpu_torch.core.warp import retrieve_params
@@ -54,8 +67,16 @@ from hyperbo_tpu_torch.ops import bwd_joint
 from hyperbo_tpu_torch.ops import chol as chol_ops
 from hyperbo_tpu_torch.ops import mll_bwd
 from hyperbo_tpu_torch.ops import tri_inv as tri_inv_ops
+from hyperbo_tpu_torch.ops.chol_panel import factor_block_column, solve_rows
 
 TILE = mll_bwd.TILE
+# The persistent launch's tile: 128 x 128, the last row and column of tiles
+# 64 wide where n / 64 is odd.
+SUPER = 2 * TILE
+# What the chain publishes at each step for the workers' panel solves: the
+# diagonal tile's two 64 x 64 factors transposed, the 64 x 64 tile between
+# them and 1 / sqrt of its 128 pivots.
+PANEL = 3 * TILE * TILE + 2 * TILE
 # The smallest n the route takes: the JAX package's group * block, so that
 # both packages send the same configurations down the fused route.
 MIN_N = 512
@@ -66,7 +87,13 @@ _LOG_2PI = math.log(2 * math.pi)
 
 KERNEL = _build.CudaKernel(
     'fused_mll.cu', 'hyperbo_mll_fused',
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5)
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 +
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p])
+
+# One part of the kernel's schedule, run by one block: `op` on tile (i, j)
+# (of 128 x 128 tiles) at step k, after every counter in `waits` ((i, j),
+# value) has reached its value; it then sets the counters in `sets`.
+Work = collections.namedtuple('Work', 'op i j k waits sets')
 
 
 def _gram_transform(sqd, sv, kfam: str):
@@ -101,13 +128,253 @@ def mll_fused_plain(x: torch.Tensor, y: torch.Tensor, sv, da,
           torch.sum(torch.log(torch.diagonal(chol))))
 
 
+def _chain_work(ns: int) -> list:
+  """The chain block's parts: the first diagonal tile, then for each step k
+  the loads of tiles (k + 1, k) and (k + 1, k + 1) (beside the factor), the
+  factor of (k, k) with its release, the solve of (k + 1, k) beside z_k, and
+  the lookahead update of (k + 1, k + 1) beside the release of the solved
+  tile, z_k and its partial."""
+  work = [Work('load', 0, 0, 0, (), ())]
+  for k in range(ns):
+    if k + 1 < ns:
+      work.append(Work('prefetch', k + 1, k, k,
+                       (((k + 1, k), k), ((k + 1, k + 1), k)), ()))
+    work.append(Work('factor', k, k, k, (), (((k, k), k + 1),)))
+    work.append(Work('solve_next', k + 1, k, k, (), ()))
+    if k + 1 < ns:
+      work.append(Work('lookahead', k + 1, k + 1, k, (),
+                       (((k + 1, k), k + 1),)))
+  return work
+
+
+def _task_columns(ns: int) -> list:
+  """fused_tasks' columns in order, each (op, j, k, first row)."""
+  columns = []
+  for front in range(1, 2 * ns - 2):
+    for last in range((front - 1) // 2, -1, -1):
+      j = front - last
+      if j >= ns:
+        continue
+      if j == last + 1:
+        columns.append(('solve', last, last, last + 2))
+      elif j == last + 2 or (last % 2 == 0 and j == last + 3):
+        columns.append(('update', j, last, j))
+      elif last % 2 == 1 and j >= last + 3:
+        columns.append(('update2', j, last - 1, j))
+  return columns
+
+
+def fused_tasks(n: int) -> list:
+  """The workers' tasks in the kernel's order, each (op, i, j, k):
+    'solve'   tile (i, k) of step k (j = k), followed in the same block by
+              the update of (i, k + 1) with the chain's L_{k+1,k} and the
+              partial L_ik z_k;
+    'update'  tile (i, j) by step k alone (128 deep): the columns
+              j = k + 2 and, for an even k, k + 3, so that the diagonal
+              tile the chain factors next waits on one 128-deep product;
+    'update2' tile (i, j) by steps k and k + 1 at once (256 deep), k even,
+              j >= k + 4: every other update.
+  A task belongs to the column it writes and to the last step it applies
+  (the solves of step k to column k + 1); the columns go in wavefronts of
+  step + column, the newest step's first, each column's tiles from the
+  diagonal down. A column needs only the wavefronts before its own, so the
+  solves of step k + 1 and the first columns of its update come before
+  the far columns of step k's: the chain's next tiles never wait behind
+  the bulk of a step."""
+  ns = -(-n // SUPER)
+  return [(op, i, j, k) for op, j, k, first in _task_columns(ns)
+          for i in range(first, ns)]
+
+
+def _task_work(op: str, i: int, j: int, k: int) -> list:
+  """A task's parts with their waits and sets: a solve releases (i, k) as
+  soon as it is stored, then waits for the chain's L_{k+1,k} and z_k."""
+  if op == 'solve':
+    return [Work('solve', i, k, k, (((k, k), k + 1), ((i, k), k)),
+                 (((i, k), k + 1),)),
+            Work('update_held', i, k + 1, k,
+                 (((k + 1, k), k + 1), ((i, k + 1), k)),
+                 (((i, k + 1), k + 1),))]
+  steps = 2 if op == 'update2' else 1
+  return [Work(op, i, j, k,
+               tuple(((r, k + s), k + s + 1) for s in range(steps)
+                     for r in (i, j)) + (((i, j), k),),
+               (((i, j), k + steps),))]
+
+
+def fused_schedule(n: int, blocks: int) -> list:
+  """The persistent launch's schedule on a grid of `blocks` blocks: for
+  each block the list of parts it runs, in order, each with the counters
+  it waits on and the counters it sets. Block 0 runs the chain; the
+  workers, blocks 1 .. blocks - 1, take `fused_tasks` round robin. Tiles
+  are 128 x 128 (the last row and column 64 wide where n / 64 is odd);
+  counter (i, j) counts the steps whose update tile (i, j) holds, and is
+  j + 1 once the tile is final."""
+  if n <= 0 or n % TILE or blocks < 2:
+    raise ValueError(f'fused_schedule takes n a positive multiple of {TILE} '
+                     f'and blocks >= 2; got {n}, {blocks}')
+  workers = blocks - 1
+  schedule = [_chain_work(-(-n // SUPER))] + [[] for _ in range(workers)]
+  for t, task in enumerate(fused_tasks(n)):
+    schedule[1 + t % workers] += _task_work(*task)
+  return schedule
+
+
+def _solve_panel(x: torch.Tensor, pan: dict):
+  """In place: x <- x L_kk^-T for the rows of x, as a thread solves its row:
+  the first 64 columns against L_kk's first factor, their products off the
+  other 64, those against its second factor."""
+  solve_rows(x[:, :TILE], pan['l00'], pan['rd0'])
+  if 'l11' in pan:
+    x[:, TILE:] -= x[:, :TILE] @ pan['l1'].T
+    solve_rows(x[:, TILE:], pan['l11'], pan['rd1'])
+
+
+def mll_fused_steps(x: torch.Tensor, y: torch.Tensor, sv, da,
+                    kfam: str = 'se', valid: Optional[torch.Tensor] = None,
+                    blocks: int = 132
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """Plain mirror of the kernel's algorithm (tests run it in float64):
+  (L, quad, logdet_half) by `fused_schedule`'s parts, run block by block as
+  their counters allow, on NaN-initialised scratch. The Gram launch writes
+  K's lower 64 x 64 tiles and zeros above; a diagonal factor is two
+  `factor_block_column`s with the 64-deep update between them, a panel
+  solve `_solve_panel`, an update one 128- or 256-deep product subtracted
+  (a diagonal tile's upper 64 x 64 quarter left as it is); z_k is the chain's
+  solve of y_k less the partials L_km z_m of its row, and quad and
+  logdet_half are summed on the chain in step order. NaN (or inf) where not
+  positive definite, as the kernel gives before the wrapper's poison."""
+  n = x.shape[0]
+  t, s = TILE, SUPER
+  ns = -(-n // s)
+  kmat = _gram_transform(mll_bwd.raw_sqdist(x), sv, kfam)
+  if valid is not None:
+    kmat = kmat * (valid[:, None] * valid[None, :])
+  kmat = kmat + da * torch.eye(n, dtype=x.dtype, device=x.device)
+  tiles = torch.arange(n, device=x.device) // t
+  out = torch.where(tiles[:, None] >= tiles[None, :], kmat,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+  nan = float('nan')
+  z = torch.full((n,), nan, dtype=x.dtype, device=x.device)
+  partial = torch.full((ns, ns, s), nan, dtype=x.dtype, device=x.device)
+  y = y.reshape(n)
+
+  def rows(i):
+    return slice(i * s, min((i + 1) * s, n))
+
+  def tile(i, j):
+    return out[rows(i), rows(j)]
+
+  def lower(i):
+    """Diagonal tile i as a factor reads it: its upper 64 x 64 quarter 0."""
+    d = tile(i, i).clone()
+    d[:t, t:] = 0.0
+    return d
+
+  local = {}  # the chain block's shared memory
+  held = {}   # a worker's solved tile, until its held update
+  panels = {}
+  sums = [0.0, 0.0]
+  schedule = fused_schedule(n, blocks)
+  counts = collections.Counter()
+  done = [0] * len(schedule)
+  while any(p < len(w) for p, w in zip(done, schedule)):
+    moved = False
+    for blk, work in enumerate(schedule):
+      while done[blk] < len(work) and all(
+          counts[c] >= v for c, v in work[done[blk]].waits):
+        w = work[done[blk]]
+        i, j, k = w.i, w.j, w.k
+        if w.op == 'load':
+          local['diag'] = lower(0)
+        elif w.op == 'prefetch':
+          local['below'] = tile(i, k).clone()
+          local['next'] = lower(i)
+        elif w.op == 'factor':
+          d = local['diag']
+          pan = {'rd0': factor_block_column(d[:, :t])}
+          pan['l00'] = d[:t, :t]
+          if d.shape[0] > t:
+            pan['l1'] = d[t:, :t]
+            d[t:, t:] -= pan['l1'] @ pan['l1'].T
+            pan['rd1'] = factor_block_column(d[t:, t:])
+            pan['l11'] = d[t:, t:]
+          panels[k] = pan
+          tile(k, k).copy_(torch.tril(d))
+          b = y[rows(k)].clone()
+          for m in range(k):
+            b -= partial[k, m, :b.shape[0]]
+          local['b'] = b
+        elif w.op == 'solve_next':
+          zk = local['b'][None, :]
+          _solve_panel(zk, panels[k])
+          local['z'] = zk[0]
+          sums[0] += float(torch.sum(zk * zk))
+          sums[1] += float(torch.sum(torch.log(torch.diagonal(tile(k, k)))))
+          if k + 1 < ns:
+            _solve_panel(local['below'], panels[k])
+          else:
+            z[rows(k)] = local['z']
+        elif w.op == 'lookahead':
+          below = local['below']
+          local['next'] -= below @ below.T
+          local['diag'] = local['next']
+          tile(i, k).copy_(below)
+          z[rows(k)] = local['z']
+          partial[i, k, :below.shape[0]] = below @ local['z']
+        elif w.op == 'solve':
+          x_ik = tile(i, k).clone()
+          _solve_panel(x_ik, panels[k])
+          tile(i, k).copy_(x_ik)
+          held[i, k] = x_ik
+        elif w.op == 'update_held':
+          x_ik = held.pop((i, k))
+          tile(i, j).sub_(x_ik @ tile(j, k).T)
+          partial[i, k, :x_ik.shape[0]] = x_ik @ z[rows(k)]
+        else:
+          cols = slice(k * s, (k + (2 if w.op == 'update2' else 1)) * s)
+          prod = out[rows(i), cols] @ out[rows(j), cols].T
+          if i == j:
+            prod[:t, t:] = 0.0
+          tile(i, j).sub_(prod)
+        for c, v in w.sets:
+          counts[c] = v
+        done[blk] += 1
+        moved = True
+    if not moved:
+      raise RuntimeError('fused_schedule deadlocks')
+  return (out, torch.tensor(sums[0], dtype=x.dtype),
+          torch.tensor(sums[1], dtype=x.dtype))
+
+
+@functools.lru_cache(maxsize=16)
+def task_table(n: int, device: torch.device) -> torch.Tensor:
+  """`fused_tasks(n)` as the kernel reads it: one int32 a task,
+  pair << 30 | k << 20 | j << 10 | i (a solve has j == k; pair is 1 for
+  'update2'), on the device."""
+  ns = -(-n // SUPER)
+  columns = _task_columns(ns)
+  heads = np.array([(op == 'update2') << 30 | k << 20 | j << 10 | first
+                    for op, j, k, first in columns], dtype=np.int64)
+  sizes = np.array([ns - first for _, _, _, first in columns],
+                   dtype=np.int64)
+  starts = np.cumsum(sizes) - sizes
+  rows = np.arange(int(sizes.sum()), dtype=np.int64) - np.repeat(starts,
+                                                                 sizes)
+  codes = np.repeat(heads, sizes) + rows
+  return torch.tensor(codes.astype(np.int32), device=device)
+
+
 def launch_mll_fused(x: torch.Tensor, y: torch.Tensor, sv: torch.Tensor,
                      da: torch.Tensor, kfam: str = 'se',
                      valid: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """Run the Hopper kernel: x (n, d), y (n, 1), sv and da one-element
   tensors, valid (n,) 0/1 or None, all float32 and contiguous on one CUDA
-  device; n a multiple of 64."""
+  device; n a multiple of 64. One call, two kernel launches (the Gram
+  tiles, then the persistent factorization), with the workers' task list,
+  the counters (zeroed here), the published panels and the partials
+  L_ik z_k as scratch."""
   sv_da = torch.cat([sv.reshape(1), da.reshape(1)])
   _build.check_cuda_f32('launch_mll_fused', x=x, y=y, sv_da=sv_da,
                         valid=valid)
@@ -118,19 +385,23 @@ def launch_mll_fused(x: torch.Tensor, y: torch.Tensor, sv: torch.Tensor,
                      f'{tuple(y.shape)}')
   if valid is not None and valid.shape != (n,):
     raise ValueError(f'valid must be ({n},), got {tuple(valid.shape)}')
+  ns = -(-n // SUPER)
   z = y.reshape(n).clone()
-  chol = torch.empty((n, n), dtype=torch.float32, device=x.device)
-  dinv = torch.empty((TILE, TILE), dtype=torch.float32, device=x.device)
-  parts = torch.empty((2 * (n // TILE),), dtype=torch.float64,
-                      device=x.device)
-  out = torch.empty((2,), dtype=torch.float32, device=x.device)
+  opts = dict(dtype=torch.float32, device=x.device)
+  chol = torch.empty((n, n), **opts)
+  panel = torch.empty((ns, PANEL), **opts)
+  partial = torch.empty((ns, ns, SUPER), **opts)
+  counts = torch.zeros((ns, ns), dtype=torch.int32, device=x.device)
+  out = torch.empty((2,), **opts)
+  tasks = task_table(n, x.device)
   with torch.cuda.device(x.device):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     KERNEL.launch(x.data_ptr(),
                   valid.data_ptr() if valid is not None else None,
                   sv_da.data_ptr(), z.data_ptr(), n, d,
-                  mll_bwd.KFAM_CODE[kfam], chol.data_ptr(), dinv.data_ptr(),
-                  parts.data_ptr(), out.data_ptr(), stream)
+                  mll_bwd.KFAM_CODE[kfam], chol.data_ptr(), panel.data_ptr(),
+                  partial.data_ptr(), counts.data_ptr(), tasks.data_ptr(),
+                  tasks.numel(), out.data_ptr(), stream)
   return chol, out[0], out[1]
 
 
@@ -139,8 +410,10 @@ def mll_fused(x: torch.Tensor, y: torch.Tensor, sv, da, kfam: str = 'se',
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
   """(L, quad, logdet_half) = (chol K, y^T K^{-1} y, sum log diag L).
 
-  L is dense lower triangular (n, n). The kernel clamps non-positive
-  pivots (L_jj <= 0 marks them); the plain version returns NaN there.
+  L is dense lower triangular (n, n). Where K is not positive definite,
+  the kernel leaves a diagonal entry of L that is not > 0 (or NaN: there is
+  no pivot clamp) and the plain version returns NaN; _poison_non_pd makes
+  either a NaN factor and value.
   """
   if x.device.type == 'cuda':
     return launch_mll_fused(x, y, sv, da, kfam, valid)
@@ -152,11 +425,11 @@ def mll_fused(x: torch.Tensor, y: torch.Tensor, sv, da, kfam: str = 'se',
 def _poison_non_pd(chol, nll):
   """NaN factor and value where the factorization failed.
 
-  A clamped pivot leaves a diagonal entry of L <= 0, and the plain version
-  leaves NaN; either way min(diag L) > 0 is false. Poisoning L makes every
-  backward product NaN too, so the trainer's isfinite-freeze trips as on
-  the dense path. Unlike the JAX package, whose value-only primal keeps
-  the clamp's finite garbage, every call is poisoned here.
+  A failed pivot leaves a diagonal entry of L that is <= 0 or NaN, in the
+  kernel and in the plain version; either way min(diag L) > 0 is false.
+  Poisoning L makes every backward product NaN too, so the trainer's
+  isfinite-freeze trips as on the dense path. Unlike the JAX package, whose value-only primal keeps
+  its pivot clamp's finite garbage, every call is poisoned here.
   """
   bad = ~(torch.min(torch.diagonal(chol)) > 0)
   nan = torch.full((), float('nan'), dtype=chol.dtype, device=chol.device)

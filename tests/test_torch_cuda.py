@@ -13,12 +13,13 @@ another order on another device). The fused large-n kernels K2-K4 against
 their float64 plain versions: L within atol 5e-4 (tests/test_pallas_chol.py),
 quad and logdet within rtol 1e-4 (tests/test_objectives.py:313), T, P and
 the two backward scalars within 5e-3 of their largest entry (bench.py:540,
-the gradient parity bound), and K3's T bitwise equal across two calls
-(one fixed-order sum per entry). The dense-Cholesky kernels K6 and K7 against
-their float64 plain versions: atol 5e-4 (tests/test_pallas_chol.py); the
-model evaluation through them within rtol 1e-4 of the cuSOLVER route for
-the NLL and the partial EKL, and 1e-3 for the full EKL, whose whitened
-covariance amplifies the factorizations' float32 rounding. The joint
+the gradient parity bound), and K2's and K3's outputs bitwise equal across
+two calls (one fixed-order sum per entry). The dense-Cholesky kernels K6
+and K7 against their float64 plain versions: atol 5e-4
+(tests/test_pallas_chol.py); the model evaluation through them within rtol
+1e-4 of the cuSOLVER route for the NLL and the partial EKL, and 1e-3 for
+the full EKL, whose whitened covariance amplifies the factorizations'
+float32 rounding. The joint
 backward K8 against its float64 plain version and against the K3 + alpha +
 K4 route on the card: d_x, alpha and the two scalars within 5e-3 of their
 largest entry (the gradient parity bound), and the T it computes bitwise
@@ -206,6 +207,32 @@ def test_tri_inv_is_deterministic(cuda_device):
                                   torch.float64)
   l = fused_mll.mll_fused_plain(x, y, sv, da)[0].float().contiguous()
   assert torch.equal(tri_inv.tri_inv(l), tri_inv.tri_inv(l))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,d,n_valid,kfam', [(704, 3, 700, 'matern32'),
+                                              (1216, 5, 1216, 'matern52')])
+def test_fused_mll_is_deterministic(cuda_device, n, d, n_valid, kfam):
+  """K2 sums every entry of L, and quad and logdet_half, in one fixed order
+  (per-tile counters order its persistent launch, no atomics): two calls
+  are bitwise equal, one wrapper launch each, and both hold to the float64
+  plain version; 704 and 1216 rows end in a 64-wide tile row."""
+  x, y, sv, da, v = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                  torch.float32)
+  x64, y64, sv64, da64, v64 = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                            torch.float64)
+  before = fused_mll.KERNEL.launches
+  first = fused_mll.launch_mll_fused(x, y, sv, da, kfam, v)
+  second = fused_mll.launch_mll_fused(x, y, sv, da, kfam, v)
+  torch.cuda.synchronize()
+  assert fused_mll.KERNEL.launches - before == 2
+  assert all(torch.equal(a, b) for a, b in zip(first, second))
+  chol64, quad64, ld64 = fused_mll.mll_fused_plain(x64, y64, sv64, da64,
+                                                   kfam, v64)
+  np.testing.assert_allclose(first[0].cpu().numpy(), chol64.cpu().numpy(),
+                             atol=5e-4)
+  np.testing.assert_allclose(float(first[1]), float(quad64), rtol=1e-4)
+  np.testing.assert_allclose(float(first[2]), float(ld64), rtol=1e-4)
 
 
 @pytest.mark.cuda
