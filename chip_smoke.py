@@ -25,7 +25,8 @@ exits non-zero and the final ok line is never printed:
      n = 8192 bitwise equal, and the digest of that T (the same on every
      build of K3's arithmetic); NaN for a non-PD input; two K2 calls at
      n = 8192 bitwise equal, one wrapper launch each, and the digest of
-     that L; the median time of each kernel and its plain version at
+     that L; the same for K4 (the digest of its P, d_sv_raw and d_da);
+     the median time of each kernel and its plain version at
      n = 8192, and beside K2 torch.linalg.cholesky of the same K (the Gram
      built outside the timing) as the factor's yardstick;
   6. the large-n training path: GP.train() with config['fused_mll'] on 2
@@ -63,9 +64,9 @@ exits non-zero and the final ok line is never printed:
      (5000 rows, masked: 79 tiles) and 8192, each for SE and a Matern
      family (max rel 5e-3 for d_x, alpha, d_sv and d_da); each call one
      launch, and the T it leaves in its scratch bitwise equal to K3's; NaN
-     outputs for a NaN in L; two calls at n = 8192 bitwise equal; the
-     median time of K8, its plain version and K3 + alpha + K4 at n = 8192,
-     in the same turns;
+     outputs for a NaN in L; two calls at n = 8192 bitwise equal, with
+     the digest of their outputs; the median time of K8, its plain version
+     and K3 + alpha + K4 at n = 8192, in the same turns;
   11. the K8 path: phase 6's training with HYPERBO_BWD_JOINT=1 (set here
      and restored after), which launches K2 and K8 once per task per step
      and K3 and K4 never, and whose loss trace matches phase 6's (rtol
@@ -487,6 +488,18 @@ def phase_fused_kernels(dev):
   log(f'K2 two calls at n=8192: bitwise equal, one launch each; output '
       f'digest {digest(first[0])}')
   del first, second
+  # K4's entries are each one sum in a fixed order (no atomics) too.
+  before = mll_bwd.KERNEL.launches
+  first = mll_bwd.launch_mll_bwd(b['t'], b['x'], b['alpha'], b['sv'])
+  k4_launches = mll_bwd.KERNEL.launches - before
+  second = mll_bwd.launch_mll_bwd(b['t'], b['x'], b['alpha'], b['sv'])
+  if not (all(torch.equal(u, v) for u, v in zip(first, second)) and
+          k4_launches == 1):
+    raise AssertionError(f'K4: two calls at n=8192 differ, or '
+                         f'{k4_launches} launches a call')
+  log(f'K4 two calls at n=8192: bitwise equal, one launch each; output '
+      f'digest {digest(torch.cat([o.reshape(-1) for o in first]))}')
+  del first, second
 
   # One library call computes K3's function: the n-RHS triangular solve.
   # None computes K2's (Gram, Cholesky, solve and logdet): the Cholesky of
@@ -754,7 +767,8 @@ def phase_joint_kernel(dev):
   again = bwd_joint.launch_mll_bwd_joint(l_in, x32, y32, sv32, kfam, v32)
   if not all(torch.equal(a, b) for a, b in zip(got, again)):
     raise AssertionError('K8: two calls at n=8192 differ')
-  log('K8 two calls at n=8192: bitwise equal')
+  log(f'K8 two calls at n=8192: bitwise equal; output digest '
+      f'{digest(torch.cat([o.reshape(-1) for o in got]))}')
   ms = _turns(
       FUSED_TIMED_RUNS,
       plain=lambda: bwd_joint.mll_bwd_joint_plain(l_in, x32, y32, sv32, kfam),

@@ -1,16 +1,17 @@
-// The bodies of the fused NLL's SYRK backward, shared by K4 (mll_bwd.cu)
-// and the joint backward K8 (bwd_joint.cu), which runs them in its
-// persistent launch after K3's levels (tri_inv_core.cuh). Each function
-// does one work item of a block:
+// The bodies of the fused NLL's SYRK backward on 64 x 64 tile pairs, which
+// the joint backward K8 (bwd_joint.cu) runs in its persistent launch after
+// K3's levels (tri_inv_core.cuh). Each function does one work item of a
+// block:
 //
 //   syrk_pair      one lower tile pair (i, j) of the SYRK consumption;
 //   reduce_p_entry one entry of P from the pairs' partials;
 //   reduce_scalars (d_sv_raw, d_da) from the pairs' partials.
 //
-// The arithmetic of each is K4's, operation for operation, so K4's outputs
-// stay bitwise what they were before the move. kFresh marks inputs that an
-// earlier phase of the same launch wrote (K8): those are read through L2
-// with __ldcg, never through the non-coherent L1 path.
+// They were K4's bodies until K4 moved to 128 x 128 tile pairs
+// (syrk128_core.cuh); K4 still sums its scalar partials with
+// reduce_scalars. kFresh marks inputs that an earlier phase of the same
+// launch wrote (K8): those are read through L2 with __ldcg, never through
+// the non-coherent L1 path.
 
 #pragma once
 

@@ -24,9 +24,10 @@
 //      a fixed order;
 //   4. alpha_c = sum_{r >= c} T_rc u_r, one 32-column slab an item, reading
 //      only the nonzero half of T;
-//   5. K4's tile-pair SYRK consumption (bwd_core.cuh syrk_pair), alpha from
-//      phase 4's buffer, into per-pair partials of P, d_sv and d_da;
-//   6. K4's fixed-order reductions of those partials.
+//   5. the SYRK consumption on 64 x 64 tile pairs (bwd_core.cuh syrk_pair),
+//      alpha from phase 4's buffer, into per-pair partials of P, d_sv and
+//      d_da;
+//   6. the fixed-order reductions of those partials.
 //
 // In phases 2 and 5 a block that finishes an item takes the next from a
 // counter (for_each_item), heaviest first, as the hardware hands out the
@@ -47,13 +48,13 @@
 // What bounds it on an H100: the n^3/6 FP32 FMAs of K3's levels and the
 // n^3/6 of K4's SYRK (n^3 * 2/3 float32 operations, 5.5 ms at n = 8192 at
 // 67 TFLOP/s). One launch saves the host K3's 2 ceil(log2 nb) + 1
-// launches, K4's three and alpha's two matrix-vector passes over all of T;
+// launches, K4's two and alpha's two matrix-vector passes over all of T;
 // the two chains stay. One kernel takes the registers of its largest
 // phase: unbounded, the 128 x 128 products held it at 215 registers and one
-// block a multiprocessor, where the SYRK pairs ran 1.5x slower than K4's
-// launch, which fits two. __launch_bounds__(kThreads, 2) caps it at 128
-// registers (a few spills, in the products' copy addressing) for two
-// blocks a multiprocessor (tools/probe_bwd_joint.py; PERF.md).
+// block a multiprocessor, where the SYRK pairs ran 1.5x slower than in a
+// launch of their own, which fit two. __launch_bounds__(kThreads, 2) caps
+// it at 128 registers (a few spills, in the products' copy addressing) for
+// two blocks a multiprocessor (tools/probe_bwd_joint.py; PERF.md).
 //
 // Built with -DHYPERBO_JOINT_LAPS (tools/probe_bwd_joint.py), thread 0 of
 // each block also stamps clock64() at the end of each phase's work and

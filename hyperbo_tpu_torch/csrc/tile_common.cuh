@@ -1,8 +1,9 @@
 // Device code shared by the fused-NLL kernels (fused_mll.cu, tri_inv.cu,
-// tri_inv_core.cuh, mll_bwd.cu, bwd_core.cuh, bwd_joint.cu) and the Gram
-// kernel (gram.cu): the 64 x 64 tile geometry, the squared-distance tile and
-// the kernel-family transforms of hyperbo_tpu/ops/pallas_mll.py
-// (_gram_transform) and hyperbo_tpu/ops/pallas_mll_bwd.py (_km_nm).
+// tri_inv_core.cuh, mll_bwd.cu, syrk128_core.cuh, bwd_core.cuh,
+// bwd_joint.cu) and the Gram kernel (gram.cu): the 64 x 64 tile geometry,
+// the squared-distance tile and the kernel-family transforms of
+// hyperbo_tpu/ops/pallas_mll.py (_gram_transform) and
+// hyperbo_tpu/ops/pallas_mll_bwd.py (_km_nm).
 //
 // Layout. Every n x n matrix of the fused path (K2's factor L, K3's input L
 // and output T = L^{-1}, K4's input T) is one dense row-major float32

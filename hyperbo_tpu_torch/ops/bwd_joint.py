@@ -11,8 +11,8 @@ takes it under HYPERBO_BWD_JOINT=1, as the JAX package does.
 `mll_bwd_joint` dispatches on the tensor's device: a CUDA tensor goes
 through the hand-written Hopper kernel (csrc/bwd_joint.cu: one persistent
 cooperative launch that runs K3's recursive block-inverse levels from
-csrc/tri_inv_core.cuh, u = T delta, alpha, then K4's bodies from
-csrc/bwd_core.cuh, phase after phase) or raises; a CPU tensor goes through
+csrc/tri_inv_core.cuh, u = T delta, alpha, then the 64 x 64 tile-pair
+SYRK bodies of csrc/bwd_core.cuh, phase after phase) or raises; a CPU tensor goes through
 the plain PyTorch version `mll_bwd_joint_plain`, the chain of the three
 plain versions. There is no fallback from one to the other, and never from
 the kernel to K3 + K4. The Mosaic knobs of the JAX function (tile shapes,

@@ -16,19 +16,31 @@ writes K^{-1}, G or W to device memory, or raises; a CPU tensor goes
 through the plain PyTorch version `mll_bwd_plain`, the dense chain of
 hyperbo_tpu/ops/pallas_mll.py:1383-1405 written from T. There is no
 fallback from one to the other.
+
+The kernel's schedule is settled here on the CPU: `mll_bwd_tasks` lists its
+blocks, one lower pair of 128-wide tiles each, in launch order with the
+partial slots each writes, and `mll_bwd_steps` is its float64 mirror: the
+pairs' chunked SYRK, epilogue and partials in that order, then the
+reduction's fixed summation order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import FrozenSet, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from hyperbo_tpu_torch.ops import _build
 
 TILE = 64
+# The kernel's tile pairs are 2 TILE wide (csrc/syrk128_core.cuh kW), its
+# ring stages CHUNK rows of T deep (kBk); its reduction block has
+# REDUCE_THREADS threads (tile_common.cuh kThreads).
+PAIR = 2 * TILE
+CHUNK = 16
+REDUCE_THREADS = 256
 KFAM_CODE = {'se': 0, 'matern32': 1, 'matern52': 2}
 
 _SQRT3 = math.sqrt(3.0)
@@ -82,6 +94,105 @@ def mll_bwd_plain(t: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
   return p, torch.sum(gmat * kmat), torch.trace(gmat)
 
 
+def tile_width(n: int, i: int) -> int:
+  """Rows of 128-wide tile i: 64 for the last where n / 64 is odd."""
+  return min(PAIR, n - PAIR * i)
+
+
+class Pair(NamedTuple):
+  """One block of the kernel: lower tile pair (i, j), j <= i, the chunks
+  of its SYRK (CHUNK rows of T each, from row 128 i to n), and the partial
+  slots it writes: ('p_part', row tile, other tile) and ('s_part', index)."""
+  i: int
+  j: int
+  chunks: int
+  writes: FrozenSet[tuple]
+
+
+def mll_bwd_tasks(n: int) -> List[Pair]:
+  """The kernel's blocks in launch order: block b takes the pair with
+  b = i (i + 1) / 2 + j (tile_common.cuh decode_pair), i ascending, so the
+  heaviest pairs (the most rows of T) come first."""
+  ns = -(-n // PAIR)
+  tasks = []
+  for i in range(ns):
+    for j in range(i + 1):
+      b = len(tasks)
+      writes = {('p_part', i, j), ('s_part', 2 * b), ('s_part', 2 * b + 1)}
+      if i != j:
+        writes.add(('p_part', j, i))
+      tasks.append(Pair(i, j, (n - PAIR * i) // CHUNK, frozenset(writes)))
+  return tasks
+
+
+def _reduce_scalars(s_part: torch.Tensor) -> torch.Tensor:
+  """(d_sv_raw, d_da) from the pairs' partials in bwd_core.cuh
+  reduce_scalars' order: thread h of one block sums pairs h, h + 256, ...
+  ascending, then a halving tree over the threads."""
+  parts = s_part.reshape(-1, 2)
+  red = torch.zeros((REDUCE_THREADS, 2), dtype=s_part.dtype,
+                    device=s_part.device)
+  for q0 in range(0, parts.shape[0], REDUCE_THREADS):
+    rows = parts[q0:q0 + REDUCE_THREADS]
+    red[:rows.shape[0]] = red[:rows.shape[0]] + rows
+  w = REDUCE_THREADS // 2
+  while w > 0:
+    red[:w] = red[:w] + red[w:2 * w]
+    w //= 2
+  return red[0]
+
+
+def mll_bwd_steps(t: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
+                  sv: torch.Tensor, kfam: str = 'se',
+                  valid: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """The kernel's blocks (mll_bwd_tasks) run in order in plain PyTorch, then
+  its reductions: (P, d_sv_raw, d_da) as mll_bwd_fused gives them. Each
+  pair's K^{-1} tile is summed chunk by chunk from row 128 i, its r2 in the
+  kernels' distance form; the partials start as NaN, so a reduction that
+  read a slot no pair wrote would show in the outputs."""
+  n, d = x.shape
+  ns, f1 = -(-n // PAIR), d + 1
+  opts = dict(dtype=t.dtype, device=t.device)
+  p_part = torch.full((ns, ns, PAIR, f1), float('nan'), **opts)
+  s_part = torch.full((ns * (ns + 1),), float('nan'), **opts)
+  sqn = torch.sum(x * x, dim=1)
+  ones = torch.ones((n, 1), **opts)
+  xo = torch.cat([x, ones], dim=1)
+  for b, pair in enumerate(mll_bwd_tasks(n)):
+    i, j = pair.i, pair.j
+    wi, wj = tile_width(n, i), tile_width(n, j)
+    ri = slice(PAIR * i, PAIR * i + wi)
+    rj = slice(PAIR * j, PAIR * j + wj)
+    kinv = torch.zeros((wi, wj), **opts)
+    for c in range(pair.chunks):
+      k = slice(PAIR * i + CHUNK * c, PAIR * i + CHUNK * (c + 1))
+      kinv = kinv + t[k, ri].T @ t[k, rj]
+    r2 = torch.clamp(sqn[ri, None] + sqn[None, rj] - 2.0 * (x[ri] @ x[rj].T),
+                     min=0.0)
+    km, nm = _km_nm(r2, sv, kfam)
+    if valid is not None:
+      pr = valid[ri, None] * valid[None, rj]
+      km, nm = km * pr, nm * pr
+    g = 0.5 * kinv - 0.5 * (alpha[ri] @ alpha[rj].T)
+    w = g * nm
+    p_part[i, j, :wi] = w @ xo[rj]
+    if i != j:
+      p_part[j, i, :wj] = w.T @ xo[ri]
+    gk = torch.sum(g * km)
+    s_part[2 * b] = gk if i == j else 2.0 * gk
+    s_part[2 * b + 1] = torch.trace(g) if i == j else 0.0
+  p = torch.empty((n, f1), **opts)
+  for r in range(ns):
+    rows = slice(PAIR * r, PAIR * r + tile_width(n, r))
+    acc = p_part[r, 0, :tile_width(n, r)]
+    for o in range(1, ns):
+      acc = acc + p_part[r, o, :tile_width(n, r)]
+    p[rows] = acc
+  out = _reduce_scalars(s_part)
+  return p, out[0], out[1]
+
+
 def launch_mll_bwd(t: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
                    sv: torch.Tensor, kfam: str = 'se',
                    valid: Optional[torch.Tensor] = None
@@ -99,10 +210,10 @@ def launch_mll_bwd(t: torch.Tensor, x: torch.Tensor, alpha: torch.Tensor,
                      f'{tuple(alpha.shape)}')
   if valid is not None and valid.shape != (n,):
     raise ValueError(f'valid must be ({n},), got {tuple(valid.shape)}')
-  nb = n // TILE
-  p_part = torch.empty((nb, nb, TILE, d + 1), dtype=torch.float32,
+  ns = -(-n // PAIR)
+  p_part = torch.empty((ns, ns, PAIR, d + 1), dtype=torch.float32,
                        device=t.device)
-  s_part = torch.empty((nb * (nb + 1),), dtype=torch.float64,
+  s_part = torch.empty((ns * (ns + 1),), dtype=torch.float64,
                        device=t.device)
   p = torch.empty((n, d + 1), dtype=torch.float32, device=t.device)
   out = torch.empty((2,), dtype=torch.float32, device=t.device)

@@ -17,7 +17,6 @@ import torch
 
 from hyperbo_tpu.ops import chol as jchol
 from hyperbo_tpu.ops import pallas_chol
-from hyperbo_tpu.ops import pallas_chol_hbm
 from hyperbo_tpu_torch.ops import chol as tchol
 from hyperbo_tpu_torch.ops import chol_hbm
 from hyperbo_tpu_torch.ops import chol_panel
@@ -43,6 +42,22 @@ def routes():
   for name in SETTERS:
     getattr(jchol, name)(False)
     getattr(tchol, name)(False)
+
+
+@pytest.fixture(scope='module')
+def hbm_route():
+  """A 1024 x 1024 matrix and the JAX package's factor of it through its
+  HBM route (ops/chol.cholesky with set_use_hbm_kernel on: the Pallas HBM
+  kernel, interpreted, at its default block and chunk). The interpreted
+  trace is this file's costliest step, so the two tests that hold the port
+  against that kernel share one."""
+  a = _spd(1024, 1024)
+  jchol.set_use_hbm_kernel(True)
+  try:
+    want = np.asarray(jchol.cholesky(jnp.asarray(a)))
+  finally:
+    jchol.set_use_hbm_kernel(False)
+  return a, want
 
 
 def _nll(chol, y):
@@ -82,14 +97,12 @@ def test_k7_plain_matches_jax_panel_kernels():
   np.testing.assert_allclose(got, np.linalg.cholesky(batch), atol=2e-5)
 
 
-def test_k6_plain_matches_jax_hbm_kernel():
+def test_k6_plain_matches_jax_hbm_kernel(hbm_route):
   """cholesky_hbm (plain version here) against the Pallas HBM kernel at
-  the JAX suite's one interpreted configuration; the layout aliases give
-  the same factor and keep the JAX shape checks."""
-  a = _spd(5, 512)
-  y = np.random.default_rng(6).normal(size=(512, 1))
-  want = np.asarray(pallas_chol_hbm.cholesky_hbm(
-      jnp.asarray(a), block=128, chunk=256, interpret=True))
+  n = 1024, as the JAX route runs it; the layout aliases give the same
+  factor and keep the JAX shape checks."""
+  a, want = hbm_route
+  y = np.random.default_rng(6).normal(size=(1024, 1))
   ta = torch.from_numpy(a)
   got = chol_hbm.cholesky_hbm(ta, block=128, chunk=256).numpy()
   np.testing.assert_allclose(got, want, atol=5e-4)
@@ -118,14 +131,19 @@ def test_k6_plain_matches_jax_hbm_kernel():
     (('set_use_recursive', 'set_use_pallas_base'), 1024, 512),
     (('set_use_recursive', 'set_use_pallas_base'), 700, 256),
 ])
-def test_routes_match_jax_routes(routes, names, n, base_block):
+def test_routes_match_jax_routes(request, routes, names, n, base_block):
   """ops/chol.cholesky with the same setters on in both packages: K6 at
-  n = 1024, and the blocked recursion with K7 base cases (1024 splits into
+  n = 1024 (the JAX route's factor from the hbm_route fixture, the same
+  call), and the blocked recursion with K7 base cases (1024 splits into
   two 512 blocks; 700 recurses down to 128-188 blocks)."""
-  a = _spd(n, n)
   y = np.random.default_rng(7).normal(size=(n, 1))
-  routes(*names)
-  want = np.asarray(jchol.cholesky(jnp.asarray(a), base_block=base_block))
+  if names == ('set_use_hbm_kernel',):
+    a, want = request.getfixturevalue('hbm_route')
+    routes(*names)
+  else:
+    a = _spd(n, n)
+    routes(*names)
+    want = np.asarray(jchol.cholesky(jnp.asarray(a), base_block=base_block))
   got = tchol.cholesky(torch.from_numpy(a), base_block=base_block).numpy()
   np.testing.assert_allclose(got, want, atol=5e-4)
   np.testing.assert_allclose(got, np.linalg.cholesky(a.astype(np.float64)),

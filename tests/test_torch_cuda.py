@@ -13,8 +13,8 @@ another order on another device). The fused large-n kernels K2-K4 against
 their float64 plain versions: L within atol 5e-4 (tests/test_pallas_chol.py),
 quad and logdet within rtol 1e-4 (tests/test_objectives.py:313), T, P and
 the two backward scalars within 5e-3 of their largest entry (bench.py:540,
-the gradient parity bound), and K2's and K3's outputs bitwise equal across
-two calls (one fixed-order sum per entry). The dense-Cholesky kernels K6
+the gradient parity bound), and K2's, K3's and K4's outputs bitwise equal
+across two calls (one fixed-order sum per entry). The dense-Cholesky kernels K6
 and K7 against their float64 plain versions: atol 5e-4
 (tests/test_pallas_chol.py); the model evaluation through them within rtol
 1e-4 of the cuSOLVER route for the NLL and the partial EKL, and 1e-3 for
@@ -233,6 +233,33 @@ def test_fused_mll_is_deterministic(cuda_device, n, d, n_valid, kfam):
                              atol=5e-4)
   np.testing.assert_allclose(float(first[1]), float(quad64), rtol=1e-4)
   np.testing.assert_allclose(float(first[2]), float(ld64), rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('n,d,n_valid,kfam', [(64, 2, 64, 'matern52'),
+                                              (192, 5, 150, 'se'),
+                                              (320, 3, 320, 'se')])
+def test_mll_bwd_is_deterministic(cuda_device, n, d, n_valid, kfam):
+  """K4 on one 64-wide tile and on 3 and 5 of them (a 64-wide last tile of
+  its 128 x 128 pairs): two calls bitwise equal, one wrapper launch each,
+  both within 5e-3 of the float64 plain version."""
+  x, y, sv, da, v = _fused_inputs(n, n, d, n_valid, cuda_device,
+                                  torch.float64)
+  t64 = tri_inv.tri_inv_plain(fused_mll.mll_fused_plain(x, y, sv, da, kfam,
+                                                        v)[0])
+  alpha64 = tri_inv.alpha_from_inverse(t64, y)
+  args = [a.float().contiguous() for a in (t64, x, alpha64, sv)]
+  v32 = None if v is None else v.float()
+  before = mll_bwd.KERNEL.launches
+  first = mll_bwd.mll_bwd_fused(*args, kfam, v32)
+  second = mll_bwd.mll_bwd_fused(*args, kfam, v32)
+  torch.cuda.synchronize()
+  assert mll_bwd.KERNEL.launches - before == 2
+  assert all(torch.equal(a, b) for a, b in zip(first, second))
+  want = mll_bwd.mll_bwd_plain(*[a.double() for a in args], kfam,
+                               None if v is None else v)
+  for got, ref in zip(first, want):
+    assert _max_rel(got, ref) <= 5e-3
 
 
 @pytest.mark.cuda

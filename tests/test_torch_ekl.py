@@ -102,7 +102,8 @@ def _torch_value_and_grad(fn, model):
 
 
 def _jax_value_and_grad(fn, model):
-  val, grads = jax.value_and_grad(fn)(jax.tree.map(jnp.asarray, model))
+  val, grads = jax.jit(jax.value_and_grad(fn))(
+      jax.tree.map(jnp.asarray, model))
   return float(val), {k: np.asarray(g) for k, g in grads.items()}
 
 
@@ -122,9 +123,9 @@ def test_linalg_and_priors_match_jax():
   rng = np.random.default_rng(1)
   for rhs in (rng.normal(size=(6,)), rng.normal(size=(6, 3))):
     rhs = rhs.astype(np.float32)
-    want = jax.value_and_grad(
+    want = jax.jit(jax.value_and_grad(
         lambda m, v: jnp.sum(jlinalg.inverse_spdmatrix_vector_product(
-            m, v) ** 2), argnums=(0, 1))(jnp.asarray(spd), jnp.asarray(rhs))
+            m, v) ** 2), argnums=(0, 1)))(jnp.asarray(spd), jnp.asarray(rhs))
     m, v = _t(spd).requires_grad_(True), _t(rhs).requires_grad_(True)
     val = torch.sum(tlinalg.inverse_spdmatrix_vector_product(m, v) ** 2)
     got = torch.autograd.grad(val, (m, v))
@@ -236,10 +237,12 @@ def test_packed_ekl_matches_jax():
   for partial, eps in ((True, 0.0), (True, 1e-6), (False, 0.0),
                        (False, 1e-6)):
     tol = 3e-3 if eps else 5e-4
-    want = float(jpacked.multivariate_normal_divergence_packed(
-        jmean.constant, jkernel.squared_exponential,
-        jdefs.GPParams(model=jax.tree.map(jnp.asarray, _model())), jpack,
-        warp_func=JWARP, partial=partial, eps=eps))
+    jdist = functools.partial(
+        jpacked.multivariate_normal_divergence_packed, jmean.constant,
+        jkernel.squared_exponential, warp_func=JWARP, partial=partial,
+        eps=eps)
+    want = float(jax.jit(lambda m: jdist(jdefs.GPParams(model=m), jpack))(
+        jax.tree.map(jnp.asarray, _model())))
     params = tdefs.GPParams(model={k: _t(v) for k, v in _model().items()})
     got = float(tpacked.multivariate_normal_divergence_packed(
         tmean.constant, tkernel.squared_exponential, params, tpack,
