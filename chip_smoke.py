@@ -9,8 +9,13 @@ exits non-zero and the final ok line is never printed:
   2. build: compiles all eight kernels K1-K8 (csrc/*.cu, sm_90a) from the
      checkout's sources, one nvcc process each, all at once;
   3. K1 against its plain PyTorch version on the card: max abs error
-     against the float64 plain version (bound 1e-5), NaN for a non-PD
-     input, and the median time of both at the PD1 training shape;
+     against the float64 plain version (bound 1e-5) at (T, n) = (23, 100),
+     (3, 128), (5, 37), (2, 1), n = 31, 32, 33, 64, 65, 127 and (256, 100),
+     each one launch, and on a batch that is not symmetric (the plain
+     version of 0.5 (K + K^T)); the NLL terms' value and gradient; NaN for
+     a non-PD task only; two calls bitwise equal, with their digest; the
+     median time of both at the PD1 training shape, the kernel's per call
+     and its device time (calls back to back);
   4. the main path at PD1 width: run_bayesopt(init_model=True) on 23 tasks
      x 2048 points x 4-d inputs (50 Adam steps at batch 100, so K1 runs on
      (23, 100, 100) each step), then 20 EI iterations over 10,000
@@ -75,11 +80,14 @@ exits non-zero and the final ok line is never printed:
   12. K5 (the Gram kernel) through gram_with_ridge, cross_gram and gram at
      ragged shapes (70 x 70, 41 x 17, 1000 x 333) with d = 1, 4, 8 and 40,
      all three families, against the float64 plain version (atol 2e-5 sv);
-     the median time of the kernel and its plain version at n = 8192, d = 8
-     and at 10,000 candidates x 2048 points, d = 4;
+     at 8192 x 8192, d = 8, against float64, two calls bitwise equal (with
+     their digest) and one launch a call; the median time of the kernel
+     and its plain version at n = 8192, d = 8 and at 10,000 candidates x
+     2048 points, d = 4, the kernel's per call and its device time;
   13. one JSON line with the kernels' numbers (each with its bound from the
      bytes and operations of its inputs, and the time of one PyTorch call
-     computing the same function where there is one), then the ok line.
+     computing the same function where there is one; K1 and K5 also with
+     their device time, device_ms), then the ok line.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -104,6 +112,10 @@ CANDIDATES = 10_000
 K1_ATOL = 1e-5
 STEP_LOSS_RTOL = 1e-4
 TIMED_RUNS = 50
+# Device time: calls enqueued back to back behind a sleep of the stream
+# (~10 ms at the H100's 1.98 GHz boost clock) and timed as one span.
+BACK_TO_BACK = 50
+QUEUE_SLEEP_CYCLES = 20_000_000
 
 # The fused large-n path (phases 5-7).
 FUSED_TASKS = ((8192, 'a'), (5000, 'b'))
@@ -179,15 +191,34 @@ def phase_build(kernels):
 def phase_k1(batch_chol, dev):
   rng = np.random.default_rng(0)
   worst = 0.0
-  for t, n in ((23, 100), (3, 128), (5, 37), (2, 1)):
+  # The training shape, one panel and partial ones (31-33), two panels and
+  # a ragged third (64, 65), n = 127 and 128, and more tasks than SMs.
+  for t, n in ((23, 100), (3, 128), (5, 37), (2, 1), (1, 31), (1, 32),
+               (1, 33), (1, 64), (1, 65), (1, 127), (256, 100)):
     kb = spd_batch(rng, t, n)
+    before = batch_chol.KERNEL.launches
     got = batch_chol.batched_linv_t(torch.from_numpy(kb).to(dev))
-    want = batch_chol.linv_t_plain(torch.from_numpy(kb).double().to(dev))
+    launches = batch_chol.KERNEL.launches - before
+    # The plain version of what the kernel factors, 0.5 (K + K^T).
+    want = batch_chol.linv_t_plain(symmetrized(torch.from_numpy(kb).double()
+                                                .to(dev)))
     err = float((got.double() - want).abs().max())
-    log(f'K1 (T={t}, n={n}): max abs err vs float64 plain {err:.3e}')
-    if not err <= K1_ATOL:
-      raise AssertionError(f'K1 error {err} > {K1_ATOL} at ({t}, {n})')
+    log(f'K1 (T={t}, n={n}): max abs err vs float64 plain {err:.3e}, '
+        f'{launches} launch')
+    if not (err <= K1_ATOL and launches == 1):
+      raise AssertionError(f'K1 error {err} > {K1_ATOL} at ({t}, {n}), or '
+                           f'{launches} launches')
     worst = max(worst, err)
+  # A batch that is not symmetric: the kernel symmetrizes as it loads.
+  kb = torch.from_numpy(spd_batch(rng, 4, 100)).to(dev)
+  kb = kb + 0.01 * torch.triu(torch.ones_like(kb), diagonal=1)
+  err = float((batch_chol.batched_linv_t(kb).double() -
+               batch_chol.linv_t_plain(symmetrized(kb.double()))).abs().max())
+  log(f'K1 (T=4, n=100) not symmetric: max abs err vs the float64 plain '
+      f'version of 0.5 (K + K^T) {err:.3e}')
+  if not err <= K1_ATOL:
+    raise AssertionError(f'K1 error {err} on a batch that is not symmetric')
+  worst = max(worst, err)
 
   # Value and gradient of the NLL terms through the kernel, against the
   # plain version in float64 on the card.
@@ -221,12 +252,26 @@ def phase_k1(batch_chol, dev):
   log('K1 non-PD input: NaN out, as the TPU kernel')
 
   kb = torch.from_numpy(spd_batch(rng, TASKS, BATCH)).to(dev)
-  kb = 0.5 * (kb + kb.transpose(-1, -2))
-  ms = _turns(TIMED_RUNS, plain=lambda: batch_chol.linv_t_plain(kb),
-              kernel=lambda: batch_chol.launch_linv_t(kb))
-  log(f'K1 time at (T={TASKS}, n={BATCH}): kernel {ms["kernel"]:.4f} ms, '
-      f'plain {ms["plain"]:.4f} ms (median of {2 * TIMED_RUNS} each)')
+  first = batch_chol.batched_linv_t(kb)
+  if not torch.equal(first, batch_chol.batched_linv_t(kb)):
+    raise AssertionError('K1: two calls differ')
+  log(f'K1 two calls at (T={TASKS}, n={BATCH}): bitwise equal; output '
+      f'digest {digest(first)}')
+  fns = dict(plain=lambda: batch_chol.linv_t_plain(symmetrized(kb)),
+             kernel=lambda: batch_chol.batched_linv_t(kb))
+  ms = _turns(TIMED_RUNS, **fns)
+  ms['device'], spans = device_turns(5, kernel=fns['kernel'])['kernel']
+  log(f'K1 time at (T={TASKS}, n={BATCH}): kernel {ms["kernel"]:.4f} ms '
+      f'per call, {ms["device"]:.4f} ms device time; plain '
+      f'{ms["plain"]:.4f} ms (per call: median of {2 * TIMED_RUNS}, one call '
+      f'a pair of events; device: median of {spans} measured of 10 spans of '
+      f'{BACK_TO_BACK} calls back to back)')
   return worst, ms
+
+
+def symmetrized(kb):
+  """0.5 (K + K^T), as batched_linv_t takes its input."""
+  return 0.5 * (kb + kb.transpose(-1, -2))
 
 
 def make_data(seed=0):
@@ -372,6 +417,46 @@ def _turns(runs, **fns):
   for name in list(fns) + list(reversed(fns)):
     times[name] += median_ms(fns[name], runs)
   return {name: statistics.median(t) for name, t in times.items()}
+
+
+def device_ms(fn, launches=BACK_TO_BACK):
+  """The device's own ms a call: CUDA events around `launches` calls back
+  to back, divided by their count. The calls are enqueued while the stream
+  waits in torch.cuda._sleep, so the host's work between calls leaves the
+  device no gap. NaN, with a line saying why, where the host took longer
+  to enqueue than the sleep lasted (a call that waits on the device)."""
+  fn()
+  ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+  torch.cuda.synchronize()
+  ev[0].record()
+  torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+  ev[1].record()
+  t0 = time.perf_counter()
+  for _ in range(launches):
+    fn()
+  host_ms = (time.perf_counter() - t0) * 1e3
+  ev[2].record()
+  ev[2].synchronize()
+  slept = ev[0].elapsed_time(ev[1])
+  if not host_ms < slept:
+    log(f'device time not measured: enqueueing {launches} calls took '
+        f'{host_ms:.3f} ms, the sleep that kept them queued {slept:.3f} ms')
+    return float('nan')
+  return ev[1].elapsed_time(ev[2]) / launches
+
+
+def device_turns(runs, **fns):
+  """{name: (median ms, spans measured)} over `runs` device_ms readings of
+  each function, in turns as _turns takes them: the median of the readings
+  that measured something (NaN if none did)."""
+  times = {name: [] for name in fns}
+  for name in list(fns) + list(reversed(fns)):
+    times[name] += [device_ms(fns[name]) for _ in range(runs)]
+  out = {}
+  for name, t in times.items():
+    got = [v for v in t if v == v]
+    out[name] = (statistics.median(got or [float('nan')]), len(got))
+  return out
 
 
 def fused_inputs(dev, n, d, seed, sv=1.3, da=0.11):
@@ -848,6 +933,23 @@ def phase_gram(dev, dataset, candidates):
 
   xb = torch.tensor(fused_data()['a'][0], device=dev) / 0.5
   xb = xb - xb.mean(dim=0, keepdim=True)
+  # The large-n Gram (rows 16-byte aligned: the float4 stores) against
+  # float64, two calls bitwise equal, one launch a call.
+  before = fused_gram.KERNEL.launches
+  first = fused_gram.gram(xb, xb, sv, ridge, 'se', add_ridge=True)
+  second = fused_gram.gram(xb, xb, sv, ridge, 'se', add_ridge=True)
+  big_launches = fused_gram.KERNEL.launches - before
+  err = float((first.double() - fused_gram.gram_plain(
+      xb.double(), xb.double(), sv, ridge, 'se', True)).abs().max())
+  log(f'K5 gram {tuple(first.shape)} d={xb.shape[1]}: max abs err vs float64 '
+      f'{err:.3e}; two calls bitwise equal {torch.equal(first, second)}, '
+      f'{big_launches} launches; output digest {digest(first)}')
+  if not (err <= GRAM_ATOL * sv and torch.equal(first, second) and
+          big_launches == 2):
+    raise AssertionError('K5 at 8192 x 8192: error past the bound, two '
+                         'calls differ, or not one launch a call')
+  worst = max(worst, err)
+  del first, second
   c1 = torch.tensor(candidates[0], device=dev)
   c2 = torch.tensor(dataset['workload0'][0], device=dev)
   center = torch.cat([c1, c2]).mean(dim=0, keepdim=True)
@@ -855,14 +957,25 @@ def phase_gram(dev, dataset, candidates):
   times = {}
   for name, a, b, add in (('gram_with_ridge', xb, xb, True),
                           ('cross_gram', c1, c2, False)):
-    times[name] = _turns(
-        DENSE_TIMED_RUNS,
+    fns = dict(
         plain=lambda: fused_gram.gram_plain(a, b, sv, ridge, 'se', add),
         kernel=lambda: fused_gram.launch_gram(a, b, sv, ridge, 'se', add))
-    log(f'K5 {name} time at {tuple(a.shape)} x {tuple(b.shape)} (median of '
-        f'{2 * DENSE_TIMED_RUNS} each): kernel {times[name]["kernel"]:.4f} '
-        f'ms, plain {times[name]["plain"]:.4f} ms')
+    times[name] = _turns(DENSE_TIMED_RUNS, **fns)
+    times[name]['device'], spans = device_turns(
+        5, kernel=fns['kernel'])['kernel']
+    log(f'K5 {name} time at {tuple(a.shape)} x {tuple(b.shape)}: kernel '
+        f'{times[name]["kernel"]:.4f} ms per call, '
+        f'{times[name]["device"]:.4f} ms device time; plain '
+        f'{times[name]["plain"]:.4f} ms (per call: median of '
+        f'{2 * DENSE_TIMED_RUNS}, one call a pair of events; device: median '
+        f'of {spans} measured of 10 spans of {BACK_TO_BACK} calls back to '
+        'back)')
   return worst, launches, times
+
+
+def measured(ms):
+  """ms, or None where it was not measured (NaN): JSON has no NaN."""
+  return ms if ms == ms else None
 
 
 def bound(flops, nbytes):
@@ -1160,6 +1273,7 @@ def main():
       'launches': launches,
       'max_abs_err': err,
       'ms': k1_times['kernel'],
+      'device_ms': measured(k1_times['device']),
       'plain_ms': k1_times['plain'],
       'library_ms': None,
   }]
@@ -1211,6 +1325,7 @@ def main():
       'launches': gram_launches,
       'max_abs_err': gram_worst,
       'ms': gram_times['gram_with_ridge']['kernel'],
+      'device_ms': measured(gram_times['gram_with_ridge']['device']),
       'plain_ms': gram_times['gram_with_ridge']['plain'],
       'library_ms': None,
   })

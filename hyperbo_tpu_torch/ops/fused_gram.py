@@ -8,11 +8,19 @@ As in the JAX package, nothing else calls these functions: the port's GP
 builds its Gram matrices in models/kernel.py.
 
 `gram` dispatches on the tensor's device: a CUDA tensor goes through the
-hand-written Hopper kernel (csrc/gram.cu: one block per 64 x 64 output tile,
-ragged edges guarded in the kernel, so the (n1, n2) result needs no padding
-copy) or raises; a CPU tensor goes through the plain PyTorch version
-`gram_plain`. There is no fallback from one to the other. The JAX
-function's block sizes and `interpret` have no counterpart.
+hand-written Hopper kernel (csrc/gram.cu) or raises; a CPU tensor goes
+through the plain PyTorch version `gram_plain`. There is no fallback from
+one to the other. The JAX function's block sizes and `interpret` have no
+counterpart.
+
+The kernel is bound by its stores: one block per 128 x 128 output tile,
+each warp writing whole 512-byte row segments, a float4 a lane, where the
+rows start 16-byte aligned, and the same lanes' four floats one at a time
+where they do not; ragged edges are guarded in the kernel, so the (n1, n2)
+result needs no padding copy. `gram_store_plan` mirrors that map for the
+CPU tests. signal_variance and ridge reach the kernel by value when they
+are numbers, and as device pointers when they are CUDA tensors: no call
+copies them to the card or waits on it.
 
 The functions are forward-only, as the JAX kernel has no VJP: asking for a
 gradient through them raises NotImplementedError.
@@ -22,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from hyperbo_tpu_torch.ops import _build
@@ -30,7 +39,13 @@ from hyperbo_tpu_torch.ops.fused_mll import _gram_transform
 
 KERNEL = _build.CudaKernel(
     'gram.cu', 'hyperbo_gram',
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+     ctypes.c_void_p, ctypes.c_float] + [ctypes.c_int] * 5 +
+    [ctypes.c_void_p] * 2)
+
+# csrc/gram.cu's output tile: a block's rows and columns.
+TILE_ROWS = 128
+TILE_COLS = 128
 
 
 def gram_plain(x1: torch.Tensor, x2: torch.Tensor, signal_variance, ridge,
@@ -48,10 +63,42 @@ def gram_plain(x1: torch.Tensor, x2: torch.Tensor, signal_variance, ridge,
   return out
 
 
+def gram_store_plan(n1: int, n2: int, aligned: bool = True):
+  """The stores csrc/gram.cu makes for an (n1, n2) output, as int64 arrays
+  (row, col, width): one a lane and row of a block's tile, width 4 for a
+  16-byte store of columns col .. col + 3, width 1 for a 4-byte store. The
+  16-byte path is taken where every row starts 16-byte aligned: n2 % 4 == 0
+  and an `aligned` output pointer."""
+  vec = aligned and n2 % 4 == 0
+  rows = np.arange(-(-n1 // TILE_ROWS) * TILE_ROWS)   # block row, warp, p
+  cols = np.arange(0, -(-n2 // TILE_COLS) * TILE_COLS, 4)  # block col, lane
+  r, c = (a.ravel() for a in np.meshgrid(rows, cols, indexing='ij'))
+  keep = (r < n1) & (c < n2)
+  r, c = r[keep], c[keep]
+  if vec:
+    return r, c, np.full_like(r, 4)
+  r, c = np.repeat(r, 4), (c[:, None] + np.arange(4)).ravel()
+  keep = c < n2
+  return r[keep], c[keep], np.ones(int(keep.sum()), dtype=r.dtype)
+
+
+def _scalar_arg(v, name):
+  """(device pointer or None, value) for a scalar the kernel takes: a CUDA
+  tensor by pointer (read on the card, no host sync), else by value."""
+  if isinstance(v, torch.Tensor) and v.device.type == 'cuda':
+    if v.numel() != 1:
+      raise ValueError(f'launch_gram takes a scalar {name}, got shape '
+                       f'{tuple(v.shape)}')
+    v = v.detach().to(torch.float32).reshape(()).contiguous()
+    return v, 0.0
+  return None, float(v)
+
+
 def launch_gram(x1: torch.Tensor, x2: torch.Tensor, signal_variance, ridge,
                 kind: str = 'se', add_ridge: bool = False) -> torch.Tensor:
   """Run the Hopper kernel: x1 (n1, d) and x2 (n2, d) float32 and
-  contiguous on one CUDA device; signal_variance and ridge scalars."""
+  contiguous on one CUDA device; signal_variance and ridge numbers or
+  one-element tensors (a CUDA tensor on x1's device)."""
   _build.check_cuda_f32('launch_gram', x1=x1, x2=x2)
   if (x1.ndim != 2 or x2.ndim != 2 or x1.shape[1] != x2.shape[1] or
       x1.shape[1] == 0):
@@ -63,14 +110,19 @@ def launch_gram(x1: torch.Tensor, x2: torch.Tensor, signal_variance, ridge,
   out = torch.empty((n1, n2), dtype=torch.float32, device=x1.device)
   if n1 == 0 or n2 == 0:
     return out
-  scalars = torch.stack([
-      torch.as_tensor(v, dtype=torch.float32, device=x1.device).reshape(())
-      for v in (signal_variance, ridge)])
+  sv_t, sv = _scalar_arg(signal_variance, 'signal_variance')
+  ridge_t, ridge = _scalar_arg(ridge, 'ridge')
+  for t in (sv_t, ridge_t):
+    if t is not None and t.device != x1.device:
+      raise ValueError(f'launch_gram: a scalar on {t.device}, inputs on '
+                       f'{x1.device}')
   with torch.cuda.device(x1.device):
     stream = torch.cuda.current_stream(x1.device).cuda_stream
-    KERNEL.launch(x1.data_ptr(), x2.data_ptr(), scalars.data_ptr(), n1, n2,
-                  d, mll_bwd.KFAM_CODE[kind], int(add_ridge), out.data_ptr(),
-                  stream)
+    KERNEL.launch(x1.data_ptr(), x2.data_ptr(),
+                  None if sv_t is None else sv_t.data_ptr(), sv,
+                  None if ridge_t is None else ridge_t.data_ptr(), ridge,
+                  n1, n2, d, mll_bwd.KFAM_CODE[kind], int(add_ridge),
+                  out.data_ptr(), stream)
   return out
 
 

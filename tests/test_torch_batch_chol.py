@@ -31,18 +31,10 @@ def _spd_batch(seed, t, n):
 
 
 def _sweep(k):
-  """The CUDA kernel's algorithm (csrc/batch_chol.cu), step for step in
-  numpy: the outer-product sweep over the stacked [K; I], live rows
-  j+1..j+n only."""
-  n = k.shape[0]
-  w = np.concatenate([k, np.eye(n)], axis=0)
-  for j in range(n):
-    rp = 1.0 / np.sqrt(w[j, j])
-    col = w[j + 1:j + n + 1, j] * rp
-    row = np.where(np.arange(n) > j, w[j] * rp, 0.0)
-    w[j + 1:j + n + 1] -= col[:, None] * row[None, :]
-    w[j + 1:j + n + 1, j] = col
-  return w[n:]
+  """The CUDA kernel's algorithm (csrc/batch_chol.cu): the outer-product
+  sweep over the stacked [K; I] blocked by 32-column panels, through its
+  float64 mirror ops/batch_chol.py linv_t_steps."""
+  return tbc.linv_t_steps(torch.from_numpy(k)[None])[0].numpy()
 
 
 @pytest.mark.parametrize('n', [40, 100, 128])

@@ -61,7 +61,9 @@ def _spd_batch(seed, t, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('t,n', [(23, 100), (3, 128), (5, 37), (2, 1)])
+@pytest.mark.parametrize('t,n', [(23, 100), (3, 128), (5, 37), (2, 1),
+                                 (1, 31), (1, 32), (1, 33), (1, 64), (1, 65),
+                                 (1, 127), (256, 100)])
 def test_kernel_matches_plain(cuda_device, t, n):
   kb = _spd_batch(t * n, t, n)
   before = batch_chol.KERNEL.launches
@@ -70,6 +72,20 @@ def test_kernel_matches_plain(cuda_device, t, n):
   assert batch_chol.KERNEL.launches == before + 1
   want = batch_chol.linv_t_plain(kb.double())
   np.testing.assert_allclose(got.cpu().double().numpy(), want.numpy(),
+                             atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_kernel_is_deterministic_and_symmetrizes(cuda_device):
+  """Two calls bitwise equal; a batch that is not symmetric gives the
+  plain version of 0.5 (K + K^T), which the kernel forms as it loads."""
+  kb = _spd_batch(6, 23, 100).to(cuda_device)
+  assert torch.equal(batch_chol.batched_linv_t(kb),
+                     batch_chol.batched_linv_t(kb))
+  skew = kb + 0.01 * torch.triu(torch.ones_like(kb), diagonal=1)
+  got = batch_chol.batched_linv_t(skew)
+  want = batch_chol.linv_t_plain(0.5 * (skew.double() + skew.double().mT))
+  np.testing.assert_allclose(got.cpu().double().numpy(), want.cpu().numpy(),
                              atol=1e-5)
 
 
@@ -453,12 +469,13 @@ def test_joint_backward_inverse_is_k3s_and_deterministic(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize('kind', ['se', 'matern32', 'matern52'])
 def test_gram_kernel_matches_plain(cuda_device, kind):
-  """K5 through its three entry points at ragged shapes and d up to 40 (two
-  feature chunks), against the float64 plain version: one launch each, the
-  (n1, n2) shape exactly."""
+  """K5 through its three entry points at ragged shapes, d up to 40 (two
+  feature chunks) and rows 16-byte aligned (130 x 256), against the float64
+  plain version: one launch each, the (n1, n2) shape exactly, and two calls
+  bitwise equal."""
   rng = np.random.default_rng(12)
   sv, ridge = 0.9, 0.05
-  for n1, n2, d in ((70, 70, 4), (41, 17, 1), (1000, 333, 40)):
+  for n1, n2, d in ((70, 70, 4), (41, 17, 1), (1000, 333, 40), (130, 256, 8)):
     x1 = torch.tensor(rng.normal(size=(n1, d)), dtype=torch.float32)
     x2 = torch.tensor(rng.normal(size=(n2, d)), dtype=torch.float32)
     ls = torch.tensor(rng.uniform(0.5, 2.0, size=d), dtype=torch.float32)
@@ -475,9 +492,18 @@ def test_gram_kernel_matches_plain(cuda_device, kind):
       torch.cuda.synchronize()
       assert fused_gram.KERNEL.launches == before + 1
       assert got.shape == (n1, n2)
+      assert torch.equal(got, call(x1.to(cuda_device), x2.to(cuda_device),
+                                   ls.to(cuda_device)))
       want = call(x1.double(), x2.double(), ls.double())
       np.testing.assert_allclose(got.cpu().double().numpy(), want.numpy(),
                                  atol=2e-5 * sv)
+  # sv and ridge as tensors on the card: read there, the same result.
+  a, b = x1.to(cuda_device), x2.to(cuda_device)
+  as_tensors = fused_gram.gram(a, b, torch.tensor(sv, device=cuda_device),
+                               torch.tensor(ridge, device=cuda_device), kind,
+                               add_ridge=True)
+  assert torch.equal(as_tensors, fused_gram.gram(a, b, sv, ridge, kind,
+                                                 add_ridge=True))
 
 
 @pytest.mark.cuda
