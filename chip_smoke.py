@@ -84,10 +84,39 @@ exits non-zero and the final ok line is never printed:
      their digest) and one launch a call; the median time of the kernel
      and its plain version at n = 8192, d = 8 and at 10,000 candidates x
      2048 points, d = 4, the kernel's per call and its device time;
-  13. one JSON line with the kernels' numbers (each with its bound from the
+  13. the packed runner at PD1 width (bench.py's PD1 leg):
+     train/adam.make_fit_adam_packed with config['fast_subsample'] on
+     phase 4's 23 tasks packed with pad_to_multiple=128 (50 Adam steps at
+     batch 100, linear_mlp mean, squared_exponential_mlp kernel, features
+     (8, 8)); two calls of one runner on two generators: a finite, falling
+     loss and K1 once a step, the second call under
+     torch.cuda.set_sync_debug_mode('error') (no read of the device
+     between its first step and its last) and timed; one step's loss on
+     the card against the CPU from the same parameters and the same
+     injected permutation and window offsets (rtol 1e-4);
+  14. the plain on-device BO at bench.py's configuration (constant mean,
+     SE kernel, d = 4, EI, 10,000 candidates, 100 iterations, buffer 100,
+     23 training tasks): two calls, both sync-free, equal; the posterior
+     from the final W = L^-1 buffer against a fresh float64 Cholesky of the
+     same 100 observations at every candidate (max error over the largest
+     value, 1e-4); the first 10 selections against the host loop
+     bayesopt.simulated_bayesopt on the same model (where they part, the
+     two candidates' EI within 1e-5 relative: a near-tie); ms/iter of the
+     second call and of the host loop;
+  15. the q-batch and retrain runners (bench.py's variant legs): q = 1 and
+     retrain_steps = 0 give phase 14's selections bitwise; q = 4 (25
+     iterations, 8 training tasks) and retraining every 5 iterations
+     with 10 Adam steps on a corpus of 8 tasks x 100 points packed to
+     128 rows (K1 once a step: 19 retrains x 10 launches), all sync-free,
+     the retrained leaves finite; ms/iter of each;
+  16. run_bayesopt_ondevice on phase 4's pre-trained GP: 20 EI iterations
+     over its candidates through the GP branch's dispatcher, with how many
+     of its first selections are phase 4's host loop's;
+  17. one JSON line with the kernels' numbers (each with its bound from the
      bytes and operations of its inputs, and the time of one PyTorch call
      computing the same function where there is one; K1 and K5 also with
-     their device time, device_ms), then the ok line.
+     their device time, device_ms; K1 with its launches on each path),
+     then the ok line.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -116,6 +145,14 @@ TIMED_RUNS = 50
 # (~10 ms at the H100's 1.98 GHz boost clock) and timed as one span.
 BACK_TO_BACK = 50
 QUEUE_SLEEP_CYCLES = 20_000_000
+
+# The compile-once paths (phases 13-16): bench.py's on-device BO and its
+# variants.
+BO_LOOP_ITERS = 100
+HOST_BO_ITERS = 10
+BO_POSTERIOR_RTOL = 1e-4
+QBATCH = 4
+RETRAIN_TASKS, RETRAIN_EVERY, RETRAIN_STEPS = 8, 5, 10
 
 # The fused large-n path (phases 5-7).
 FUSED_TASKS = ((8192, 'a'), (5000, 'b'))
@@ -355,7 +392,7 @@ def phase_slice(dataset, candidates, batch_chol, dev, card):
       marks[step] = time.perf_counter()
 
   batch_chol.KERNEL.launches = 0
-  (xo, yo), best, _ = bayesopt.run_bayesopt(
+  (xo, yo), best, trained = bayesopt.run_bayesopt(
       dataset, 'test', defs.SubDataset(*candidates), mean.linear_mlp,
       kernel.squared_exponential_mlp, params, acfun.ei, BO_ITERS,
       warp_func=DEFAULT_WARP_FUNC,
@@ -392,7 +429,7 @@ def phase_slice(dataset, candidates, batch_chol, dev, card):
   log(f'PD1-shape training ({TASKS}x{POINTS}x{DIM}, batch {BATCH}): '
       f'{step_ms:.3f} ms/step; BO over {CANDIDATES} candidates: '
       f'{bo_ms:.3f} ms/iter [{card}]')
-  return launches
+  return launches, trained, xo
 
 
 def _rel(a, b):
@@ -1194,6 +1231,347 @@ def phase_ekl(dataset, dev, card, kernels):
   return launches
 
 
+class no_host_sync:
+  """torch.cuda.set_sync_debug_mode('error') for the duration: any
+  operation that waits for the device (a read back, a blocking copy)
+  raises inside the block."""
+
+  def __enter__(self):
+    torch.cuda.set_sync_debug_mode('error')
+
+  def __exit__(self, *exc):
+    torch.cuda.set_sync_debug_mode(0)
+
+
+def bo_model(dev):
+  """bench.py's on-device BO model (constant mean, SE kernel, d = 4), its
+  leaves on the card before any run (so that no run copies them there)."""
+  from hyperbo_tpu_torch.core import convert
+  return convert.model_to({'constant': 0.0, 'lengthscale': np.zeros(DIM),
+                           'signal_variance': 0.0, 'noise_variance': -3.0},
+                          dev)
+
+
+def phase_packed_runner(dataset, batch_chol, dev, card):
+  """Phase (a): make_fit_adam_packed at PD1 width with fast_subsample (the
+  window sampler), two calls of one runner on two generators: K1 once a
+  step, a falling loss, the second call free of host syncs; one step's
+  loss on the card against the CPU from the same parameters and the same
+  injected permutation and offsets. Returns K1's launches of one call."""
+  from unittest import mock
+  from hyperbo_tpu_torch.core import convert
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import adam
+
+  params = init_params(STEPS)
+  params.config['fast_subsample'] = True
+  model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                params, DEFAULT_WARP_FUNC, device=dev)
+  model.initialize_params(torch.Generator(device=dev).manual_seed(1))
+  model0 = model.params.model
+  packed, _ = packed_lib.pack_dataset(model.dataset, pad_to_multiple=128,
+                                      device=dev)
+  config = model.params.config
+  run = adam.make_fit_adam_packed(mean.linear_mlp,
+                                  kernel.squared_exponential_mlp, config,
+                                  warp_func=DEFAULT_WARP_FUNC)
+  batch_chol.KERNEL.launches = 0
+  _, losses = run(model0, packed, torch.Generator(device=dev).manual_seed(0))
+  trace = losses.cpu().numpy()
+  launches = batch_chol.KERNEL.launches
+  log(f'packed runner: loss first {trace[0]:.4f}, last {trace[-1]:.4f} over '
+      f'{len(trace)} steps; K1 launches {launches}')
+  if not (len(trace) == STEPS and np.isfinite(trace).all() and
+          trace[-10:].mean() < trace[:10].mean()):
+    raise AssertionError(f'packed runner loss trace: {trace}')
+  if launches != STEPS:
+    raise AssertionError(f'K1 launched {launches} times in {STEPS} steps')
+  gen = torch.Generator(device=dev).manual_seed(1)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with no_host_sync():
+    trained, losses = run(model0, packed, gen)
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+  if not torch.isfinite(losses).all():
+    raise AssertionError('packed runner: non-finite loss on the 2nd call')
+  log(f'packed runner (make_fit_adam_packed, fast_subsample, {TASKS}x'
+      f'{POINTS}x{DIM}, batch {BATCH}): second call {step_ms:.3f} ms/step, '
+      f'no host sync between its first step and its last [{card}]')
+
+  # One step on the card and on the CPU, the draws injected.
+  rng = np.random.default_rng(4)
+  order = torch.from_numpy(np.stack([rng.permutation(packed.x.shape[1])
+                                     for _ in range(TASKS)]))
+  offsets = torch.from_numpy(rng.integers(0, POINTS - BATCH + 1, TASKS))
+  one = adam.make_fit_adam_packed(
+      mean.linear_mlp, kernel.squared_exponential_mlp,
+      dict(config, max_training_step=1), warp_func=DEFAULT_WARP_FUNC)
+  step_losses = []
+  for device in ('cpu', dev):
+    with mock.patch.object(packed_lib, 'draw_permutation',
+                           lambda g, p: order.to(device)), \
+         mock.patch.object(packed_lib, 'draw_window_offsets',
+                           lambda g, p, b: offsets.to(device)):
+      _, loss = one(convert.model_to(model0, device),
+                    packed_lib.PackedDataset(*[t.to(device) for t in packed]),
+                    torch.Generator(device=device))
+    step_losses.append(float(loss[0]))
+  rel = abs(step_losses[1] - step_losses[0]) / abs(step_losses[0])
+  log(f'packed runner first-step loss: card {step_losses[1]:.6f}, cpu '
+      f'{step_losses[0]:.6f}, rel diff {rel:.3e}')
+  if not rel <= STEP_LOSS_RTOL:
+    raise AssertionError(f'card/cpu packed-runner loss differ by {rel}')
+  return launches, step_ms
+
+
+def float64_posterior(x_obs, y_obs, cand_x, model, scale):
+  """GP posterior (mu, noisy var x scale) at the candidates from a fresh
+  float64 Cholesky of the observations (constant mean, SE kernel)."""
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC, retrieve_params
+  from hyperbo_tpu_torch.models import kernel
+  m64 = {k: v.double() for k, v in model.items()}
+  const, nv = retrieve_params(m64, ['constant', 'noise_variance'],
+                              DEFAULT_WARP_FUNC)
+  x, cx = x_obs.double(), cand_x.double()
+  kmat = kernel.squared_exponential(m64, x, warp_func=DEFAULT_WARP_FUNC)
+  kmat = kmat + (nv + 1e-6) * torch.eye(len(x), dtype=kmat.dtype,
+                                         device=kmat.device)
+  chol = torch.linalg.cholesky(kmat)
+  cross = kernel.squared_exponential(m64, x, cx, warp_func=DEFAULT_WARP_FUNC)
+  mu = cross.T @ torch.cholesky_solve(y_obs.double() - const, chol) + const
+  v = torch.linalg.solve_triangular(chol, cross, upper=False)
+  kdiag = kernel.squared_exponential(m64, cx, warp_func=DEFAULT_WARP_FUNC,
+                                     diag=True)
+  var = torch.clamp(kdiag - (v * v).sum(0), min=1e-12)[:, None]
+  return mu, (var + nv) * scale
+
+
+def phase_ondevice_bo(candidates, dev, card):
+  """Phase (b): the plain on-device BO at bench.py's configuration, both
+  calls free of host syncs; the final W's posterior against float64; the
+  first selections against the host loop. Returns (selections, ms/iter,
+  host ms/iter)."""
+  from hyperbo_tpu_torch.bo import acfun, bayesopt, ondevice
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.ops import chol as chol_ops
+
+  model = bo_model(dev)
+  config = {'learning_rate': 1e-2}
+  cand_x = torch.from_numpy(candidates[0]).to(dev)
+  cand_y = torch.from_numpy(candidates[1]).to(dev)
+  queried = defs.SubDataset(cand_x, cand_y)
+  run = ondevice.make_bo_runner(mean.constant, kernel.squared_exponential,
+                                config, DEFAULT_WARP_FUNC, 'ei', BO_LOOP_ITERS,
+                                0, BO_LOOP_ITERS, TASKS)
+  x0 = cand_x.new_zeros((0, DIM))
+  gen = torch.Generator(device=dev).manual_seed(0)
+  with no_host_sync():
+    x_buf, y_buf, sel, winv = run(
+        model, cand_x.new_zeros((BO_LOOP_ITERS, DIM)),
+        cand_x.new_zeros((BO_LOOP_ITERS, 1)),
+        chol_ops.init_chol_buffer(BO_LOOP_ITERS, device=dev), 0, x0,
+        x0[:, :1], cand_x, cand_y, gen, return_factor=True)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with no_host_sync():
+    xo, yo, sel2 = ondevice.simulated_bayesopt_ondevice(
+        mean.constant, kernel.squared_exponential, model, config,
+        DEFAULT_WARP_FUNC, queried, BO_LOOP_ITERS, acquisition='ei',
+        num_train_tasks=TASKS, generator=gen, device=dev)
+  torch.cuda.synchronize()
+  iter_ms = (time.perf_counter() - t0) * 1e3 / BO_LOOP_ITERS
+  if not (torch.equal(sel, sel2) and torch.equal(xo, x_buf)):
+    raise AssertionError('two on-device BO calls differ')
+  if not (torch.isfinite(xo).all() and torch.isfinite(yo).all()):
+    raise AssertionError('on-device BO: non-finite observations')
+
+  # The final W's posterior at every candidate against float64.
+  scale = ondevice._unbiased_scale(TASKS)
+  shim = defs.GPParams(model=model, config=config)
+  mu, var = ondevice._masked_posterior(
+      mean.constant, kernel.squared_exponential, shim, DEFAULT_WARP_FUNC,
+      ondevice._noise(shim, DEFAULT_WARP_FUNC), scale, x_buf, y_buf, winv,
+      BO_LOOP_ITERS, cand_x)
+  mu64, var64 = float64_posterior(x_buf, y_buf, cand_x, model, scale)
+  errs = {'mu': _rel(mu, mu64), 'var': _rel(var, var64)}
+  log(f'on-device BO after {BO_LOOP_ITERS} appends: posterior from W vs a '
+      f'fresh float64 Cholesky at {CANDIDATES} candidates: max rel err mu '
+      f'{errs["mu"]:.3e}, var {errs["var"]:.3e} (of the largest value)')
+  if not max(errs.values()) <= BO_POSTERIOR_RTOL:
+    raise AssertionError(f'W posterior differs from float64: {errs}')
+
+  # The host loop on the same model and training tasks (so the same
+  # unbiased rescale): the same first selections, or a near-tie where
+  # they part.
+  def host_gp():
+    return gp.GP(make_data()[0], mean.constant, kernel.squared_exponential,
+                 defs.GPParams(model=dict(model), config=dict(config)),
+                 DEFAULT_WARP_FUNC, device=dev)
+
+  t0 = time.perf_counter()
+  obs = bayesopt.simulated_bayesopt(host_gp(), 'test', queried, acfun.ei,
+                                    HOST_BO_ITERS)
+  torch.cuda.synchronize()
+  host_ms = (time.perf_counter() - t0) * 1e3 / HOST_BO_ITERS
+  picks = sel[:HOST_BO_ITERS].cpu().tolist()
+  host_picks = [int(torch.nonzero((cand_x == row).all(dim=1))[0, 0])
+                for row in obs.x]
+  log(f'host loop picks {host_picks}, on-device {picks}')
+  if host_picks != picks:
+    j = next(i for i, (a, b) in enumerate(zip(host_picks, picks)) if a != b)
+    again = host_gp()
+    bayesopt.simulated_bayesopt(again, 'test', queried, acfun.ei, j)
+    ei = acfun.ei(model=again, sub_dataset_key='test',
+                  x_queries=cand_x[[host_picks[j], picks[j]]])[:, 0]
+    rel = float((ei[0] - ei[1]).abs() / ei.abs().max())
+    log(f'selections part at iteration {j}: host EI {float(ei[0]):.9g}, '
+        f'on-device pick EI {float(ei[1]):.9g}, rel diff {rel:.3e}')
+    if not rel <= 1e-5:
+      raise AssertionError(f'on-device BO parts from the host loop at {j}')
+  log(f'on-device BO (ei, {CANDIDATES} candidates, {BO_LOOP_ITERS} '
+      f'iterations, buffer {BO_LOOP_ITERS}): second call {iter_ms:.3f} '
+      f'ms/iter, no host sync inside; host loop {host_ms:.3f} ms/iter over '
+      f'{HOST_BO_ITERS} iterations [{card}]')
+  return sel, iter_ms, host_ms
+
+
+def retrain_corpus(dev):
+  """bench.py's retrain corpus: 8 tasks x 100 points of
+  y = sin(3 x @ w), packed with pad_to_multiple=128 (K1's regime)."""
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  rng = np.random.default_rng(100)
+  corpus = {}
+  for i in range(RETRAIN_TASKS):
+    x = rng.uniform(size=(100, DIM)).astype(np.float32)
+    y = np.sin(3 * x @ rng.normal(size=(DIM, 1))).astype(np.float32)
+    corpus[i] = defs.SubDataset(x, y)
+  return packed_lib.pack_dataset(corpus, pad_to_multiple=128, device=dev)[0]
+
+
+def phase_bo_variants(candidates, sel_plain, batch_chol, dev, card):
+  """Phase (c): q-batch and retrain runners at bench.py's configuration:
+  q = 1 and retrain_steps = 0 give phase (b)'s selections bitwise; q = 4
+  and retraining every 5 iterations (10 steps, K1 on the corpus) timed.
+  Returns (K1 launches of the retrain run, {name: ms/iter})."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import kernel, mean
+
+  model = bo_model(dev)
+  config = {'learning_rate': 1e-2}
+  queried = defs.SubDataset(torch.from_numpy(candidates[0]).to(dev),
+                            torch.from_numpy(candidates[1]).to(dev))
+  common = (mean.constant, kernel.squared_exponential, model, config,
+            DEFAULT_WARP_FUNC, queried)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  with no_host_sync():
+    _, _, sel_q1 = ondevice.simulated_bayesopt_ondevice_qbatch(
+        *common, BO_LOOP_ITERS, q=1, num_train_tasks=TASKS, generator=gen,
+        device=dev)
+    _, _, sel_r0, _ = ondevice.simulated_bayesopt_ondevice_retrain(
+        *common, BO_LOOP_ITERS, num_train_tasks=TASKS, retrain_steps=0,
+        generator=gen, device=dev)
+  if not (torch.equal(sel_q1[:, 0], sel_plain) and
+          torch.equal(sel_r0, sel_plain)):
+    raise AssertionError('q = 1 or retrain_steps = 0 parts from the plain '
+                         'runner')
+  log(f'q-batch q = 1 and retrain_steps = 0: the plain runner\'s '
+      f'{BO_LOOP_ITERS} selections, bitwise')
+
+  ms = {}
+  q_iters = BO_LOOP_ITERS // QBATCH
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with no_host_sync():
+    xq, yq, sel_q = ondevice.simulated_bayesopt_ondevice_qbatch(
+        *common, q_iters, q=QBATCH, num_train_tasks=RETRAIN_TASKS,
+        generator=gen, device=dev)
+  torch.cuda.synchronize()
+  ms['qbatch'] = (time.perf_counter() - t0) * 1e3 / q_iters
+  if not (tuple(sel_q.shape) == (q_iters, QBATCH) and
+          torch.isfinite(yq).all()):
+    raise AssertionError('q-batch output malformed')
+
+  pp = retrain_corpus(dev)
+  events = sum(1 for i in range(BO_LOOP_ITERS)
+               if i % RETRAIN_EVERY == 0 and i > 0)
+  batch_chol.KERNEL.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with no_host_sync():
+    _, yr, sel_r, trained = ondevice.simulated_bayesopt_ondevice_retrain(
+        *common, BO_LOOP_ITERS, num_train_tasks=RETRAIN_TASKS,
+        pretrain_packed=pp, retrain_every=RETRAIN_EVERY,
+        retrain_steps=RETRAIN_STEPS, generator=gen, device=dev)
+  torch.cuda.synchronize()
+  ms['retrain'] = (time.perf_counter() - t0) * 1e3 / BO_LOOP_ITERS
+  launches = batch_chol.KERNEL.launches
+  want = events * RETRAIN_STEPS
+  log(f'retrain runner: {events} retrains x {RETRAIN_STEPS} steps x 1 K1 '
+      f'call a step = {want}; K1 counted {launches}')
+  if launches != want:
+    raise AssertionError(f'K1 launched {launches} times, want {want}')
+  leaves = [v for v in trained.values()]
+  if not all(bool(torch.isfinite(v).all()) for v in leaves):
+    raise AssertionError('retrained model has non-finite leaves')
+  if not torch.isfinite(yr).all():
+    raise AssertionError('retrain run: non-finite observations')
+  log(f'q-batch (q = {QBATCH}, {q_iters} iterations, {CANDIDATES} '
+      f'candidates): {ms["qbatch"]:.3f} ms/iter '
+      f'({ms["qbatch"] / QBATCH:.3f} ms an evaluation); retrain (every '
+      f'{RETRAIN_EVERY}, {RETRAIN_STEPS} steps, corpus {RETRAIN_TASKS} x '
+      f'100): {ms["retrain"]:.3f} ms/iter; no host sync inside either '
+      f'[{card}]')
+  return launches, ms
+
+
+def phase_dispatcher(dataset, candidates, trained_params, host_obs, dev,
+                     card):
+  """Phase (d): run_bayesopt_ondevice on phase 4's pre-trained GP, 20 EI
+  iterations over its candidates through the GP branch's dispatcher."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+
+  model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                defs.GPParams(model=trained_params.model,
+                              config=dict(trained_params.config)),
+                DEFAULT_WARP_FUNC, device=dev)
+  queried = defs.SubDataset(torch.from_numpy(candidates[0]).to(dev),
+                            torch.from_numpy(candidates[1]).to(dev))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  # Not sync-free as a whole: the dispatcher reads the best candidate
+  # back after the loop, as bayesopt.run_bayesopt does.
+  (xo, yo), _, _ = ondevice.run_bayesopt_ondevice(model, 'test', queried,
+                                                  BO_ITERS)
+  torch.cuda.synchronize()
+  iter_ms = (time.perf_counter() - t0) * 1e3 / BO_ITERS
+  xo = xo.cpu()
+  cand_x = torch.from_numpy(candidates[0])
+  if tuple(xo.shape) != (BO_ITERS, DIM) or not torch.isfinite(yo).all():
+    raise AssertionError(f'dispatcher output of shape {tuple(xo.shape)}')
+  if not all(bool((cand_x == row).all(dim=1).any()) for row in xo):
+    raise AssertionError('an observation is not one of the candidates')
+  same = 0
+  for a, b in zip(xo, host_obs):
+    if not torch.equal(a, b):
+      break
+    same += 1
+  log(f'run_bayesopt_ondevice on the pre-trained GP ({BO_ITERS} EI '
+      f'iterations, {CANDIDATES} candidates): {iter_ms:.3f} ms/iter; its '
+      f'first {same} selections are the host loop\'s of phase 4 [{card}]')
+  return iter_ms
+
+
 def main():
   # The port first: without the repo's sources there is nothing to run.
   from hyperbo_tpu_torch.ops import (batch_chol, bwd_joint, chol_hbm,
@@ -1212,7 +1590,8 @@ def main():
   err, k1_times = phase_k1(batch_chol, dev)
   dataset, candidates, aligned = make_data()
   phase_step_parity(dataset, dev)
-  launches = phase_slice(dataset, candidates, batch_chol, dev, card)
+  launches, trained, host_obs = phase_slice(dataset, candidates, batch_chol,
+                                            dev, card)
   worst, times = phase_fused_kernels(dev)
   fused_launches, trace_k3k4 = phase_fused_train(dev, card, path_kernels)
   phase_fused_objective(dev, card)
@@ -1226,6 +1605,11 @@ def main():
   joint_launches = phase_joint_path(dev, card, path_kernels, trace_k3k4)
   gram_worst, gram_launches, gram_times = phase_gram(dev, dataset,
                                                      candidates)
+  packed_launches, _ = phase_packed_runner(dataset, batch_chol, dev, card)
+  sel_plain, _, _ = phase_ondevice_bo(candidates, dev, card)
+  retrain_launches, _ = phase_bo_variants(candidates, sel_plain, batch_chol,
+                                          dev, card)
+  phase_dispatcher(dataset, candidates, trained, host_obs, dev, card)
 
   # Work of each kernel at the shapes timed above: minimal float32
   # operations, and bytes of its inputs read and outputs written once.
@@ -1271,6 +1655,11 @@ def main():
       'source': 'hyperbo_tpu_torch/csrc/batch_chol.cu',
       'replaces': 'hyperbo_tpu/ops/pallas_batch_chol.py:131',
       'launches': launches,
+      # K1's launches on this slice's other paths: one call of the packed
+      # runner (phase 13) and the retrain runner's run (phase 15).
+      'launches_by_path': {'run_bayesopt_pretraining': launches,
+                           'make_fit_adam_packed': packed_launches,
+                           'ondevice_retrain': retrain_launches},
       'max_abs_err': err,
       'ms': k1_times['kernel'],
       'device_ms': measured(k1_times['device']),

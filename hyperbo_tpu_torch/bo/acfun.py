@@ -1,7 +1,11 @@
 """Acquisition functions for Bayesian optimization (port of
 hyperbo_tpu/bo/acfun.py): the GP branch of EI, PI and UCB with their
-callbacks. The HGP averaging, random search and Thompson sampling wait
-(ROADMAP Queue A).
+callbacks, random search and Thompson sampling. The HGP averaging (and
+HGP Thompson sampling) wait (ROADMAP Queue A).
+
+Random search and Thompson sampling consume `model.rng` (a torch.Generator
+on the model's device) through `_uniform` and `_normal`, the one place each
+draw is made, so that a test can substitute the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -21,6 +25,38 @@ _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 
 def _norm_pdf(x):
   return torch.exp(-0.5 * x * x) * _INV_SQRT_2PI
+
+
+def _uniform(generator: torch.Generator, shape) -> torch.Tensor:
+  return torch.rand(shape, generator=generator, device=generator.device)
+
+
+def _normal(generator: torch.Generator, shape) -> torch.Tensor:
+  return torch.randn(shape, generator=generator, device=generator.device)
+
+
+def random_search(model, x_queries, **unused_kwargs):
+  """Uniform random scores (n' x 1, the random-search baseline), drawn from
+  model.rng."""
+  assert model.rng is not None, 'Random search requires random key.'
+  return _uniform(model.rng, (x_queries.shape[0], 1)).to(model.device)
+
+
+def thompson_sampling(*, model, sub_dataset_key, x_queries,
+                      **unused_kwargs):
+  """Thompson-sampling scores: ONE posterior draw of the latent f at each
+  query (no observation noise, no unbiased rescale), drawn from model.rng;
+  their argmax is the Thompson choice. The draw is per candidate
+  (diagonal covariance), as bo/ondevice's 'ts'."""
+  assert model.rng is not None, 'Thompson sampling requires random key.'
+  if isinstance(model, gp.HGP):
+    raise NotImplementedError('Thompson sampling under an HGP is not '
+                              'ported yet: see ROADMAP Queue A')
+  mu, var_f = model.predict(
+      x_queries, sub_dataset_key=sub_dataset_key, full_cov=False,
+      with_noise=False, unbiased=False)
+  draw = _normal(model.rng, tuple(mu.shape)).to(mu.device)
+  return mu + torch.sqrt(torch.clamp(var_f, min=1e-12)) * draw
 
 
 def expected_improvement_sub(mu, std, target):
@@ -104,3 +140,6 @@ ucb4 = acfun_wrapper(acfun_sub=ucb_sub, acfun_callback_default=lambda a, b: 4.)
 ucb3 = acfun_wrapper(acfun_sub=ucb_sub, acfun_callback_default=lambda a, b: 3.)
 ucb2 = acfun_wrapper(acfun_sub=ucb_sub, acfun_callback_default=lambda a, b: 2.)
 ucb = ucb3
+
+rand = random_search
+ts = thompson_sampling

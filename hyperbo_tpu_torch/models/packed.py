@@ -15,8 +15,14 @@ The aligned half packs the aligned sub-datasets (n matched inputs, m
 function draws each) into (T, n_max, m_max) buffers and evaluates the
 partial or full (SVD-whitened) KL of every task at once; its
 factorizations go through ops/chol.cholesky and take its opt-in routes
-(kernels K6 and K7). The window sampler (prepermute_packed,
-subsample_packed_window) waits (ROADMAP Queue A).
+(kernels K6 and K7).
+
+Each random sampler is a draw on a torch.Generator and a deterministic
+part that takes what was drawn: subsample_packed draws scores and
+take_rows gathers; prepermute_packed draws each task's row order
+(draw_permutation) and permute_rows applies it; subsample_packed_window
+draws each task's window offset (draw_window_offsets) and take_window
+slices. Tests substitute the draws with the JAX package's.
 """
 
 from __future__ import annotations
@@ -257,6 +263,76 @@ def take_rows(packed: PackedDataset, sel: torch.Tensor) -> PackedDataset:
           < count[:, None])
   return PackedDataset(x=x, y=y, mask=mask, count=count,
                        task_mask=packed.task_mask)
+
+
+def _draw_device(generator: Optional[torch.Generator], device):
+  return generator.device if generator is not None else device
+
+
+def draw_permutation(generator: Optional[torch.Generator],
+                     packed: PackedDataset) -> torch.Tensor:
+  """(T, n_max) int64 row order of each task: its valid rows in a uniform
+  random order, then its padded rows. Drawn on the generator's device."""
+  t, n_max, _ = packed.x.shape
+  device = packed.x.device
+  scores = torch.rand((t, n_max), generator=generator,
+                      device=_draw_device(generator, device)).to(device)
+  scores = torch.where(packed.mask, scores, float('inf'))
+  return torch.argsort(scores, dim=1)
+
+
+def permute_rows(packed: PackedDataset, order: torch.Tensor
+                 ) -> PackedDataset:
+  """Rows of each task in the given (T, n_max) order; the masks and counts
+  stay (the order puts the valid rows first)."""
+  d = packed.x.shape[-1]
+  x = torch.gather(packed.x, 1, order[..., None].expand(-1, -1, d))
+  y = torch.gather(packed.y, 1, order[..., None])
+  return packed._replace(x=x, y=y)
+
+
+def prepermute_packed(generator: Optional[torch.Generator],
+                      packed: PackedDataset) -> PackedDataset:
+  """One-time random shuffle of each task's valid rows (pads stay last),
+  for subsample_packed_window: per-step batches by sliding a window over
+  the shuffled rows (epoch-style SGD batches) instead of a fresh uniform
+  subset a step (config['fast_subsample'] picks this scheme)."""
+  return permute_rows(packed, draw_permutation(generator, packed))
+
+
+def draw_window_offsets(generator: Optional[torch.Generator],
+                        packed: PackedDataset,
+                        batch_size: int) -> torch.Tensor:
+  """(T,) int64 window start of each task, uniform on
+  [0, max(count - batch_size + 1, 1)): 0 for a task smaller than the
+  batch. Drawn on the generator's device; nothing is read back."""
+  device = packed.x.device
+  u = torch.rand((packed.x.shape[0],), generator=generator,
+                 device=_draw_device(generator, device)).to(device)
+  hi = torch.clamp(packed.count.to(torch.int64) - batch_size + 1, min=1)
+  return torch.minimum((u * hi).to(torch.int64), hi - 1)
+
+
+def take_window(packed: PackedDataset, offsets: torch.Tensor,
+                batch_size: int) -> PackedDataset:
+  """Rows offsets[t] .. offsets[t] + batch_size - 1 of each task; the
+  first min(count, batch_size) rows of the batch are valid."""
+  rows = offsets[:, None] + torch.arange(batch_size, device=offsets.device)
+  return take_rows(packed, rows)
+
+
+def subsample_packed_window(generator: Optional[torch.Generator],
+                            packed: PackedDataset,
+                            batch_size: int) -> PackedDataset:
+  """Per-step batch: a random contiguous window of each task's pre-permuted
+  rows (prepermute_packed). A task smaller than the batch takes offset 0
+  and the row mask of its count; batch_size >= n_max returns the packed
+  set unchanged."""
+  if batch_size >= packed.x.shape[1]:
+    return packed
+  return take_window(packed,
+                     draw_window_offsets(generator, packed, batch_size),
+                     batch_size)
 
 
 class PackedAlignedDataset(NamedTuple):

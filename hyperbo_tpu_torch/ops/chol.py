@@ -164,7 +164,33 @@ def cho_solve(chol: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return solve_triangular(chol, z, lower=True, trans=1)
 
 
-def chol_append_padded(chol_buf: torch.Tensor, num_obs: int,
+def chol_append(chol: torch.Tensor, k_vec: torch.Tensor,
+                kappa: torch.Tensor) -> torch.Tensor:
+  """Grow a Cholesky factor by one row and column in O(n^2).
+
+  Given L with L L^T = K (n x n), the factor of [[K, k], [k^T, kappa]] is
+  [[L, 0], [w^T, sqrt(kappa - w^T w)]] with w = L^{-1} k. `k_vec` is an
+  n-vector (or n x 1) and `kappa` the scalar self covariance (noise and
+  jitter included). Returns the (n + 1) x (n + 1) factor.
+  """
+  n = chol.shape[-1]
+  w = solve_triangular(chol, k_vec.reshape(n), lower=True, trans=0)
+  d = torch.sqrt(torch.clamp(kappa - torch.dot(w, w), min=1e-12))
+  top = torch.cat([chol, chol.new_zeros((n, 1))], dim=1)
+  bottom = torch.cat([w, d.reshape(1)])[None, :]
+  return torch.cat([top, bottom], dim=0)
+
+
+def _write_row(buf: torch.Tensor, num_obs, row: torch.Tensor
+               ) -> torch.Tensor:
+  """A copy of `buf` with row num_obs replaced by `row`. num_obs may be a
+  Python int or a 0-d tensor on buf's device: the row is picked by a mask,
+  so nothing is read back to the host."""
+  idx = torch.arange(buf.shape[-1], device=buf.device)
+  return torch.where((idx == num_obs)[:, None], row[None, :], buf)
+
+
+def chol_append_padded(chol_buf: torch.Tensor, num_obs,
                        k_vec: torch.Tensor,
                        kappa: torch.Tensor) -> torch.Tensor:
   """Rank-1 append into a preallocated max-size factor.
@@ -173,21 +199,48 @@ def chol_append_padded(chol_buf: torch.Tensor, num_obs: int,
   left corner, with ones on the diagonal of the unused part (so triangular
   solves against the full buffer are well defined). `k_vec` is an N-vector
   whose first num_obs entries are the cross covariances (the rest are
-  ignored). Returns a new buffer with row num_obs written.
+  ignored). num_obs is a Python int or a 0-d tensor on the buffer's device
+  (no host read either way). Returns a new buffer with row num_obs written.
   """
   n_max = chol_buf.shape[-1]
-  valid = torch.arange(n_max, device=chol_buf.device) < num_obs
-  k_masked = torch.where(valid, k_vec, 0.0)
+  idx = torch.arange(n_max, device=chol_buf.device)
+  valid = idx < num_obs
+  k_masked = torch.where(valid, k_vec.reshape(n_max), 0.0)
   # Rows >= num_obs have identity diagonal and zero right-hand side, so
   # they solve to zeros.
   w = solve_triangular(chol_buf, k_masked, lower=True, trans=0)
   new_row = torch.where(valid, w, 0.0)
   d = torch.sqrt(torch.clamp(kappa - torch.dot(new_row, new_row),
                              min=1e-12))
-  new_row[num_obs] = d
-  buf = chol_buf.clone()
-  buf[num_obs] = new_row
-  return buf
+  new_row = torch.where(idx == num_obs, d, new_row)
+  return _write_row(chol_buf, num_obs, new_row)
+
+
+def winv_append_padded(winv_buf: torch.Tensor, num_obs,
+                       k_vec: torch.Tensor,
+                       kappa: torch.Tensor) -> torch.Tensor:
+  """Rank-1 append of W = L^{-1} in a preallocated buffer: the BO state of
+  the on-device loops (bo/ondevice.py), whose posteriors and appends are
+  then products only, with no triangular solve. The growth identity:
+
+    [[L, 0], [r^T, l]]^{-1} = [[W, 0], [-(r^T W) / l, 1 / l]],
+    r = W k,  l = sqrt(kappa - r^T r).
+
+  The buffer contract is chol_append_padded's: N x N with a valid
+  num_obs x num_obs W in the top left corner and an identity diagonal on
+  the unused part (W of the identity-padded factor is identity-padded).
+  The products run in full float32 (the package pins TF32 off).
+  """
+  n_max = winv_buf.shape[-1]
+  idx = torch.arange(n_max, device=winv_buf.device)
+  valid = idx < num_obs
+  k_masked = torch.where(valid, k_vec.reshape(n_max), 0.0)
+  # r = W k: unused rows of W are identity with a zero right-hand side.
+  r = torch.where(valid, torch.matmul(winv_buf, k_masked), 0.0)
+  l = torch.sqrt(torch.clamp(kappa - torch.dot(r, r), min=1e-12))
+  new_row = torch.where(valid, -torch.matmul(r, winv_buf) / l, 0.0)
+  new_row = torch.where(idx == num_obs, 1.0 / l, new_row)
+  return _write_row(winv_buf, num_obs, new_row)
 
 
 def init_chol_buffer(n_max: int, dtype=torch.float32,

@@ -4,12 +4,14 @@ The GP system (K + sigma^2 I) v = y - mu and its factorization, the SPD
 inverse-vector product with the JAX package's custom VJP (a
 torch.autograd.Function here), the SVD square root of a PSD matrix, and the
 square root with a clamped gradient at 0. Every factorization goes through
-ops/chol.cholesky and so takes its opt-in routes. `tri_inv_blocked` (the
-JAX fused backward's XLA inverse) has no caller in the port: the fused
-backward runs kernel K3 (ops/tri_inv.py).
+ops/chol.cholesky and so takes its opt-in routes. `tri_inv_blocked` is
+the inverse the on-device BO loops refactor with (bo/ondevice.py); the
+fused backward runs kernel K3 (ops/tri_inv.py) instead.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -102,6 +104,36 @@ def safe_sqrt(x):
 def safe_l2norm(x):
   """L2 norm of x without a NaN gradient at 0."""
   return safe_sqrt(torch.sum(x**2))
+
+
+def tri_inv_blocked(l: torch.Tensor, block: int = 512) -> torch.Tensor:
+  """L^{-1} for lower-triangular L (n x n) by the top-down recursion
+
+    [[A, 0], [B, C]]^{-1} = [[A^{-1}, 0], [-C^{-1} B A^{-1}, C^{-1}]]:
+
+  a triangular solve against the identity at or below `block`, products
+  above it, split at half of n rounded up to a multiple of `block`.
+
+  HYPERBO_TRIINV_DOUBLING=1 selects the JAX package's bottom-up batched
+  variant, a probe of one TPU toolchain that the port does not have; it
+  raises rather than run the recursion in its place.
+  """
+  if os.environ.get('HYPERBO_TRIINV_DOUBLING', '0') == '1':
+    raise NotImplementedError(
+        'HYPERBO_TRIINV_DOUBLING=1 (the bottom-up batched inverse) is not '
+        'ported: see ROADMAP Queue C')
+  n = l.shape[-1]
+  if n <= block:
+    eye = torch.eye(n, dtype=l.dtype, device=l.device)
+    return torch.linalg.solve_triangular(l, eye, upper=False)
+  m = (n // 2 + block - 1) // block * block
+  if m >= n:
+    m = n // 2
+  a_inv = tri_inv_blocked(l[:m, :m], block)
+  c_inv = tri_inv_blocked(l[m:, m:], block)
+  off = -torch.matmul(c_inv, torch.matmul(l[m:, :m], a_inv))
+  top = torch.cat([a_inv, l.new_zeros((m, n - m))], dim=1)
+  return torch.cat([top, torch.cat([off, c_inv], dim=1)], dim=0)
 
 
 def compute_delta_y_and_cov(mean_func,

@@ -1,6 +1,7 @@
 """Adam training loops for GP objectives (port of
 hyperbo_tpu/train/adam.py: `_guarded_update`, `fit_adam_scan`,
-`make_fit_adam_scan`).
+`make_fit_adam_scan`, and the packed runners `fit_adam_packed` and
+`make_fit_adam_packed` with their window sampler).
 
 The JAX package runs the whole training as one compiled `lax.scan`; here
 it is a Python loop over steps of fixed shape, with the NaN-freeze kept on
@@ -19,13 +20,15 @@ torch.optim.Adam computes the same rule, but the NaN-freeze must discard
 a step's moments and parameters together, which is simpler on state
 this module owns. The step count needs no freezing: once frozen, every
 later update is discarded, so t is the step index + 1 whenever a step
-is kept. Multistart, the host-loop `fit_adam` and the packed-only
-wrappers wait (ROADMAP Queue A).
+is kept. `adam_update` is the bare rule, which the on-device BO loop's
+retraining (bo/ondevice.py) runs without the freeze, as the JAX package
+runs plain optax.adam there. Multistart and the host-loop `fit_adam` wait
+(ROADMAP Queue A).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -71,33 +74,53 @@ class AdamState:
     return _unflatten(self.paths, self.params)
 
 
+def value_and_grads(loss_fn, state: AdamState, batch):
+  """(loss, gradients) of loss_fn at the state's parameters; a leaf the
+  loss does not reach gets a zero gradient."""
+  params = [p.detach().requires_grad_(True) for p in state.params]
+  with torch.enable_grad():
+    loss = loss_fn(_unflatten(state.paths, params), batch)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+  grads = [torch.zeros_like(p) if g is None else g
+           for p, g in zip(params, grads)]
+  return loss.detach(), grads
+
+
+@torch.no_grad()
+def adam_update(lr: float, state: AdamState, grads) -> List[Tuple[
+    torch.Tensor, torch.Tensor, torch.Tensor]]:
+  """optax.adam's update of every leaf at step state.step + 1: a list of
+  (parameter, m, v) candidates. The caller commits them (and the step)."""
+  t = state.step + 1
+  # Bias corrections rounded to float32 as optax computes them.
+  bc1 = float(np.float32(1) - np.float32(B1)**t)
+  bc2 = float(np.float32(1) - np.float32(B2)**t)
+  out = []
+  for p, m, v, g in zip(state.params, state.m, state.v, grads):
+    m = B1 * m + (1 - B1) * g
+    v = B2 * v + (1 - B2) * g * g
+    out.append((p + (m / bc1) / (torch.sqrt(v / bc2) + EPS) * (-lr), m, v))
+  return out
+
+
 def _guarded_update(lr: float, loss_fn, state: AdamState, batch):
   """One Adam update with the on-device NaN-freeze.
 
   A non-finite loss keeps the previous parameters and moments and latches
   `state.frozen`, so all remaining steps are no-ops. Returns the loss.
   """
-  params = [p.detach().requires_grad_(True) for p in state.params]
-  loss = loss_fn(_unflatten(state.paths, params), batch)
-  grads = torch.autograd.grad(loss, params, allow_unused=True)
+  loss, grads = value_and_grads(loss_fn, state, batch)
+  new = adam_update(lr, state, grads)
   state.step += 1
-  # Bias corrections rounded to float32 as optax computes them.
-  bc1 = float(np.float32(1) - np.float32(B1)**state.step)
-  bc2 = float(np.float32(1) - np.float32(B2)**state.step)
   with torch.no_grad():
     finite = torch.isfinite(loss)
     ok = finite & ~state.frozen
-    for i, g in enumerate(grads):
-      if g is None:
-        g = torch.zeros_like(params[i])
-      m = B1 * state.m[i] + (1 - B1) * g
-      v = B2 * state.v[i] + (1 - B2) * g * g
-      p = state.params[i] + (m / bc1) / (torch.sqrt(v / bc2) + EPS) * (-lr)
+    for i, (p, m, v) in enumerate(new):
       state.params[i] = torch.where(ok, p, state.params[i])
       state.m[i] = torch.where(ok, m, state.m[i])
       state.v[i] = torch.where(ok, v, state.v[i])
     state.frozen = state.frozen | ~finite
-  return loss.detach()
+  return loss
 
 
 def fit_adam_scan(loss_fn: Callable[[Dict[str, Any], Any], torch.Tensor],
@@ -142,5 +165,125 @@ def make_fit_adam_scan(loss_fn: Callable[[Dict[str, Any], Any],
   def run(model, data, generator=None):
     return fit_adam_scan(loss_fn, model, data, subsample_fn, config,
                          generator)
+
+  return run
+
+
+def _packed_loss(mean_func, cov_func, config, warp_func):
+  """The packed multi-task NLL with `config`, as (model, batch) -> loss."""
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.models import packed as packed_lib
+
+  def loss_fn(model, batch):
+    shim = defs.GPParams(model=model, config=config)
+    return packed_lib.neg_log_marginal_likelihood_packed(
+        mean_func, cov_func, shim, batch, warp_func=warp_func)
+
+  return loss_fn
+
+
+def _packed_on_device(packed, device):
+  """The packed set on its tensors' device; fields that are not tensors
+  (numpy arrays) go to `device`, resolved as models/gp does: CUDA raises
+  without a card."""
+  if torch.is_tensor(packed.x):
+    return packed
+  from hyperbo_tpu_torch.models import gp
+  device = gp.resolve_device(device)
+  return type(packed)(*[torch.as_tensor(np.asarray(f), device=device)
+                        for f in packed])
+
+
+def _fit_packed(loss_fn, model_params, packed, config, generator,
+                batch_size: int, window: bool):
+  """fit_adam_scan over the packed set on its device: with `window`, the
+  rows shuffled once and a window of them a step; else a uniform subset a
+  step. The generator (default: one on the packed set's device, seeded 0,
+  as the JAX package's PRNGKey(0)) draws the shuffle, then each batch."""
+  from hyperbo_tpu_torch.core import convert
+  from hyperbo_tpu_torch.models import packed as packed_lib
+
+  device = packed.x.device
+  if generator is None:
+    generator = torch.Generator(device=device).manual_seed(0)
+  if window:
+    packed = packed_lib.prepermute_packed(generator, packed)
+
+    def subsample(gen, data):
+      return packed_lib.subsample_packed_window(gen, data, batch_size)
+  else:
+    def subsample(gen, data):
+      return packed_lib.subsample_packed(gen, data, batch_size)
+  return fit_adam_scan(loss_fn, convert.model_to(model_params, device),
+                       packed, subsample, config, generator)
+
+
+def fit_adam_packed(mean_func,
+                    cov_func,
+                    model_params: Dict[str, Any],
+                    packed,
+                    config: Dict[str, Any],
+                    warp_func=None,
+                    generator: Optional[torch.Generator] = None,
+                    loss_fn: Optional[Callable] = None,
+                    in_shardings=None,
+                    device: Union[str, torch.device] = 'cuda'):
+  """Adam over the packed multi-task NLL, on the packed set's device (or
+  on `device`, the CUDA card unless the caller asks for the CPU, when its
+  fields are numpy arrays).
+
+  config needs learning_rate and max_training_step; batch_size defaults
+  to the packed width. With config['fast_subsample'] and every task able
+  to fill a batch (the one read of the device before the loop, as in the
+  JAX package), the rows are shuffled once and each step takes a window
+  of them (models/packed.subsample_packed_window); otherwise each step
+  draws a uniform subset (subsample_packed). `loss_fn(model, batch)`
+  overrides the packed NLL.
+
+  Returns (model_params, losses), as fit_adam_scan.
+  """
+  if in_shardings is not None:
+    from hyperbo_tpu_torch.models import gp
+    raise gp._not_ported('fit_adam_packed(in_shardings=...) (the mesh '
+                         'routes)')
+  packed = _packed_on_device(packed, device)
+  batch_size = int(config.get('batch_size', packed.x.shape[1]))
+  if loss_fn is None:
+    loss_fn = _packed_loss(mean_func, cov_func, config, warp_func)
+  big = torch.iinfo(torch.int32).max
+  window = bool(config.get('fast_subsample', False)) and int(torch.min(
+      torch.where(packed.task_mask, packed.count, big))) >= batch_size
+  return _fit_packed(loss_fn, model_params, packed, config, generator,
+                     batch_size, window)
+
+
+def make_fit_adam_packed(mean_func,
+                         cov_func,
+                         config: Dict[str, Any],
+                         warp_func=None,
+                         loss_fn: Optional[Callable] = None,
+                         device: Union[str, torch.device] = 'cuda'):
+  """Reusable packed-Adam runner `run(model_params, packed, generator=None)
+  -> (model_params, losses)` with fit_adam_packed's semantics, on the
+  packed set's device (or `device` for numpy fields), except that
+  config['fast_subsample'] is honored as given: the window sampler takes a
+  task smaller than the batch at offset 0 with a row mask, so no read of
+  the device decides the scheme, and nothing is read back between the
+  first step and the last.
+
+  The JAX package compiles this runner once for all same-shaped calls; an
+  eager runner has nothing to compile, and the factory keeps the JAX API's
+  call shape. (Capturing the step as a CUDA graph is ROADMAP's lead.)
+  """
+  batch_size_cfg = config.get('batch_size')
+  window = bool(config.get('fast_subsample', False))
+  if loss_fn is None:
+    loss_fn = _packed_loss(mean_func, cov_func, config, warp_func)
+
+  def run(model, packed, generator=None):
+    packed = _packed_on_device(packed, device)
+    batch_size = int(batch_size_cfg or packed.x.shape[1])
+    return _fit_packed(loss_fn, model, packed, config, generator,
+                       batch_size, window)
 
   return run

@@ -10,13 +10,18 @@ from the routed factor within rel 1e-4. The kernels themselves run only on
 the card: tests/test_torch_cuda.py and chip_smoke.py.
 """
 
+from unittest import mock
+
+import jax
 import jax.numpy as jnp
+from jax.experimental.pallas import tpu as pltpu
 import numpy as np
 import pytest
 import torch
 
 from hyperbo_tpu.ops import chol as jchol
 from hyperbo_tpu.ops import pallas_chol
+from hyperbo_tpu.ops import pallas_chol_hbm
 from hyperbo_tpu_torch.ops import chol as tchol
 from hyperbo_tpu_torch.ops import chol_hbm
 from hyperbo_tpu_torch.ops import chol_panel
@@ -47,16 +52,26 @@ def routes():
 @pytest.fixture(scope='module')
 def hbm_route():
   """A 1024 x 1024 matrix and the JAX package's factor of it through its
-  HBM route (ops/chol.cholesky with set_use_hbm_kernel on: the Pallas HBM
-  kernel, interpreted, at its default block and chunk). The interpreted
-  trace is this file's costliest step, so the two tests that hold the port
-  against that kernel share one."""
+  HBM route: the Pallas HBM kernel at its default block and chunk, the
+  call ops/chol.cholesky makes with set_use_hbm_kernel on. It runs in
+  Pallas's TPU interpret mode, which models the kernel's DMAs and
+  semaphores and compiles in about a third of the time of the generic
+  interpreter the route picks on the CPU (the two give the same factor to
+  float32 rounding). The interpreted trace is this file's costliest step,
+  so the two tests that hold the port against that kernel share one."""
   a = _spd(1024, 1024)
+  # The route picks that kernel for this matrix (its call recorded, not run).
+  calls = []
   jchol.set_use_hbm_kernel(True)
   try:
-    want = np.asarray(jchol.cholesky(jnp.asarray(a)))
+    with mock.patch.object(pallas_chol_hbm, 'cholesky_hbm',
+                           lambda m, **kw: calls.append((m.shape, kw)) or m):
+      jchol.cholesky(jnp.asarray(a))
   finally:
     jchol.set_use_hbm_kernel(False)
+  assert calls == [((1024, 1024), {'interpret': True})]
+  want = np.asarray(jax.jit(lambda m: pallas_chol_hbm.cholesky_hbm(
+      m, interpret=pltpu.InterpretParams()))(jnp.asarray(a)))
   return a, want
 
 
@@ -99,8 +114,9 @@ def test_k7_plain_matches_jax_panel_kernels():
 
 def test_k6_plain_matches_jax_hbm_kernel(hbm_route):
   """cholesky_hbm (plain version here) against the Pallas HBM kernel at
-  n = 1024, as the JAX route runs it; the layout aliases give the same
-  factor and keep the JAX shape checks."""
+  n = 1024 at the JAX route's block and chunk (hbm_route: the kernel call
+  the route makes, in TPU interpret mode); the layout aliases give the
+  same factor and keep the JAX shape checks."""
   a, want = hbm_route
   y = np.random.default_rng(6).normal(size=(1024, 1))
   ta = torch.from_numpy(a)
@@ -133,8 +149,9 @@ def test_k6_plain_matches_jax_hbm_kernel(hbm_route):
 ])
 def test_routes_match_jax_routes(request, routes, names, n, base_block):
   """ops/chol.cholesky with the same setters on in both packages: K6 at
-  n = 1024 (the JAX route's factor from the hbm_route fixture, the same
-  call), and the blocked recursion with K7 base cases (1024 splits into
+  n = 1024 (the JAX side from the hbm_route fixture: the route's own
+  kernel call, which the fixture checks the route makes, run in TPU
+  interpret mode), and the blocked recursion with K7 base cases (1024 splits into
   two 512 blocks; 700 recurses down to 128-188 blocks)."""
   y = np.random.default_rng(7).normal(size=(n, 1))
   if names == ('set_use_hbm_kernel',):

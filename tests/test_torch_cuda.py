@@ -25,6 +25,12 @@ K4 route on the card: d_x, alpha and the two scalars within 5e-3 of their
 largest entry (the gradient parity bound), and the T it computes bitwise
 K3's (the same level bodies). The Gram kernel K5 against its
 float64 plain version within atol 2e-5 sv (tests/test_pallas_gram.py).
+The compile-once runners (train/adam.make_fit_adam_packed,
+bo/ondevice.py) run under torch.cuda.set_sync_debug_mode('error'): no
+read of the device inside a call; the packed runner's loss trace within
+rtol 1e-4 of the CPU's on the same injected draws; the on-device BO's
+selections equal the CPU's, and its q = 1 and retrain_steps = 0 runners
+repeat the plain one bitwise.
 """
 
 import numpy as np
@@ -537,3 +543,109 @@ def test_fused_training_with_the_joint_switch(cuda_device, monkeypatch):
     counts.append([m.KERNEL.launches - b for m, b in zip(modules, before)])
   assert counts == [[steps * 2] * 3 + [0], [steps * 2, 0, 0, steps * 2]]
   np.testing.assert_allclose(traces[1], traces[0], rtol=1e-4)
+
+
+class _NoHostSync:
+  """torch.cuda.set_sync_debug_mode('error') for the duration."""
+
+  def __enter__(self):
+    torch.cuda.set_sync_debug_mode('error')
+
+  def __exit__(self, *exc):
+    torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_packed_runner_on_the_card(cuda_device, monkeypatch):
+  """make_fit_adam_packed with fast_subsample on the card: K1 once a step,
+  no host sync inside a call, and the CPU's loss trace (rtol 1e-4) on the
+  same injected permutation and window offsets."""
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import adam
+  rng = np.random.default_rng(8)
+  data = {i: defs.SubDataset(rng.uniform(size=(60, 3)).astype(np.float32),
+                             rng.normal(size=(60, 1)).astype(np.float32))
+          for i in range(4)}
+  model = gp.GP(data, mean.linear_mlp, kernel.squared_exponential_mlp,
+                defs.GPParams(
+                    model={'constant': 0., 'lengthscale': 0.,
+                           'signal_variance': 0., 'noise_variance': -3.},
+                    config={'mlp_features': (4, 4)}),
+                DEFAULT_WARP_FUNC, device='cpu')
+  model.initialize_params(torch.Generator().manual_seed(0))
+  config = {'learning_rate': 1e-2, 'max_training_step': 6, 'batch_size': 24,
+            'fast_subsample': True, 'mlp_features': (4, 4)}
+  run = adam.make_fit_adam_packed(mean.linear_mlp,
+                                  kernel.squared_exponential_mlp, config,
+                                  warp_func=DEFAULT_WARP_FUNC)
+  order = torch.from_numpy(np.stack([np.concatenate(
+      [rng.permutation(60), np.arange(60, 64)]) for _ in range(4)]))
+  offsets = [torch.from_numpy(rng.integers(0, 37, 4)) for _ in range(6)]
+  traces = []
+  for device in ('cpu', cuda_device):
+    draws = iter(offsets)
+    monkeypatch.setattr(packed_lib, 'draw_permutation',
+                        lambda g, p, d=device: order.to(d))
+    monkeypatch.setattr(packed_lib, 'draw_window_offsets',
+                        lambda g, p, b, d=device: next(draws).to(d))
+    packed, _ = packed_lib.pack_dataset(model.dataset, device=device)
+    _, losses = run(convert.model_to(model.params.model, device), packed,
+                    torch.Generator(device=device))
+    traces.append(losses.cpu().numpy())
+  np.testing.assert_allclose(traces[1], traces[0], rtol=1e-4)
+  monkeypatch.undo()
+  packed, _ = packed_lib.pack_dataset(model.dataset, device=cuda_device)
+  params = convert.model_to(model.params.model, cuda_device)
+  gen = torch.Generator(device=cuda_device).manual_seed(0)
+  before = batch_chol.KERNEL.launches
+  with _NoHostSync():
+    _, losses = run(params, packed, gen)
+  assert batch_chol.KERNEL.launches - before == 6
+  assert bool(torch.isfinite(losses).all())
+
+
+@pytest.mark.cuda
+def test_ondevice_bo_runners_on_the_card(cuda_device):
+  """The plain, q = 1 and retrain_steps = 0 runners agree bitwise on the
+  card, with no host sync inside; the plain runner picks what it picks on
+  the CPU; the retrain runner launches K1 once a retrain step."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  rng = np.random.default_rng(9)
+  cx = rng.uniform(size=(500, 3)).astype(np.float32)
+  cy = np.sin(3 * cx @ rng.normal(size=(3, 1))).astype(np.float32)
+  model = {'constant': 0., 'lengthscale': np.zeros(3, np.float32),
+           'signal_variance': 0., 'noise_variance': -3.}
+  corpus = {i: defs.SubDataset(
+      rng.uniform(size=(40, 3)).astype(np.float32),
+      rng.normal(size=(40, 1)).astype(np.float32)) for i in range(3)}
+  picks = {}
+  for device in ('cpu', cuda_device):
+    m = convert.model_to(model, device)
+    queried = defs.SubDataset(torch.from_numpy(cx).to(device),
+                              torch.from_numpy(cy).to(device))
+    common = (mean.constant, kernel.squared_exponential, m, {},
+              DEFAULT_WARP_FUNC, queried, 12)
+    pp, _ = packed_lib.pack_dataset(corpus, device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    ctx = _NoHostSync() if device != 'cpu' else torch.no_grad()
+    before = batch_chol.KERNEL.launches
+    with ctx:
+      plain = ondevice.simulated_bayesopt_ondevice(
+          *common, num_train_tasks=3, generator=gen, device=device)
+      q1 = ondevice.simulated_bayesopt_ondevice_qbatch(
+          *common, q=1, num_train_tasks=3, generator=gen, device=device)
+      r0 = ondevice.simulated_bayesopt_ondevice_retrain(
+          *common, num_train_tasks=3, retrain_steps=0, generator=gen,
+          device=device)
+      r = ondevice.simulated_bayesopt_ondevice_retrain(
+          *common, num_train_tasks=3, pretrain_packed=pp, retrain_every=4,
+          retrain_steps=3, generator=gen, device=device)
+    if device != 'cpu':
+      # Retrains before iterations 4 and 8, 3 steps each.
+      assert batch_chol.KERNEL.launches - before == 6
+    assert torch.equal(plain[2], q1[2][:, 0]) and torch.equal(plain[2], r0[2])
+    assert torch.equal(plain[0], r0[0]) and torch.equal(plain[1], q1[1])
+    assert all(bool(torch.isfinite(v).all()) for v in r[3].values())
+    picks[device if device == 'cpu' else 'cuda'] = plain[2].cpu()
+  assert torch.equal(picks['cpu'], picks['cuda'])

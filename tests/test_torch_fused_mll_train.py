@@ -16,6 +16,7 @@ from hyperbo_tpu.models import gp as jgp
 from hyperbo_tpu.models import kernel as jkernel
 from hyperbo_tpu.models import mean as jmean
 from hyperbo_tpu.models import objectives as jobj
+from hyperbo_tpu.train import adam as jadam
 from hyperbo_tpu_torch.core import convert
 from hyperbo_tpu_torch.core import defs as tdefs
 from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC as TWARP
@@ -83,7 +84,12 @@ def test_packed_route_matches_jax():
 
 def test_train_matches_jax():
   """GP.train() through the fused route: 3 Adam steps on one task of 512
-  rows, against the JAX package's GP.train with its interpreted kernel."""
+  rows, against the JAX package's packed Adam runner with its interpreted
+  kernel: the make_fit_adam_scan runner over _build_packed_training's
+  buffers that its GP.train builds and calls on this data, given the
+  subkey GP.train splits off. Run once, it gives both the loss trace and
+  the trained leaves; GP.train's finite-loss gate passes on this data and
+  its runner cache changes no value."""
   steps = 3
   x, y = _inputs(5, 512, 3, scale=1.0)
   y = np.sin(3 * x @ np.array([[1.0], [-2.0], [0.5]], np.float32)) + 0.1 * y
@@ -100,13 +106,15 @@ def test_train_matches_jax():
                                  config=jconfig), JWARP)
   jmodel.initialize_params(jax.random.PRNGKey(0))
   init_np = jax.tree.map(np.asarray, jmodel.params.model)
-  jmodel.train(jax.random.PRNGKey(1))
-  runner = next(iter(jmodel._trainer_cache.values()))
-  _, jdata, _, _ = jgp._build_packed_training(
+  # The JAX side runs what its GP.train runs on the packed route, once, so
+  # the interpreted kernels take the 3 steps once.
+  loss_fn, jdata, subsample_fn, _ = jgp._build_packed_training(
       jmodel.params.config['objective'], jmodel.dataset, jmodel.params.config,
       jmean.constant, jkernel.squared_exponential, JWARP)
-  _, jlosses = runner(jax.tree.map(jnp.asarray, init_np), jdata,
-                      jax.random.PRNGKey(2))
+  jtrained, jlosses = jadam.make_fit_adam_scan(
+      loss_fn, subsample_fn, jmodel.params.config)(
+          jax.tree.map(jnp.asarray, init_np), jdata,
+          jax.random.split(jax.random.PRNGKey(1))[1])
 
   tmodel = tgp.GP(data, tmean.constant, tkernel.squared_exponential,
                   tdefs.GPParams(model=convert.model_from_jax(init_np),
@@ -119,7 +127,7 @@ def test_train_matches_jax():
   assert len(losses) == steps and losses[-1] < losses[0]
   np.testing.assert_allclose(losses, np.asarray(jlosses), rtol=1e-4)
   trained = convert.model_to_numpy(tmodel.params.model)
-  for key, want in jax.tree.map(np.asarray, jmodel.params.model).items():
+  for key, want in jax.tree.map(np.asarray, jtrained).items():
     np.testing.assert_allclose(trained[key], want, atol=1e-4)
 
 

@@ -261,6 +261,27 @@ def test_cuda_device_without_cuda_raises(monkeypatch):
           tdefs.GPParams(config={'method': 'adam', 'max_training_step': 1}),
           {0: tdefs.SubDataset(torch.zeros(4, 2), torch.zeros(4, 1))},
           **kwargs)
+    # The array entry points: candidates or packed fields given as numpy.
+    from hyperbo_tpu_torch.bo import ondevice
+    from hyperbo_tpu_torch.train import adam
+    for fn in (ondevice.simulated_bayesopt_ondevice,
+               ondevice.simulated_bayesopt_ondevice_qbatch,
+               ondevice.simulated_bayesopt_ondevice_retrain):
+      with pytest.raises(RuntimeError, match='CUDA is not available'):
+        fn(tmean.zero, tkernel.squared_exponential, {}, {}, None,
+           tdefs.SubDataset(x, x[:, :1]), 1, **kwargs)
+    packed = tpacked.PackedDataset(
+        x[None], x[None, :, :1], np.ones((1, 4), bool),
+        np.array([4], np.int32), np.ones((1,), bool))
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+      adam.make_fit_adam_packed(
+          tmean.zero, tkernel.squared_exponential,
+          {'learning_rate': 0.1, 'max_training_step': 1}, **kwargs)(
+              {}, packed)
+    with pytest.raises(RuntimeError, match='CUDA is not available'):
+      adam.fit_adam_packed(
+          tmean.zero, tkernel.squared_exponential, {}, packed,
+          {'learning_rate': 0.1, 'max_training_step': 1}, **kwargs)
 
 
 PORT_MODULES = [
@@ -269,7 +290,7 @@ PORT_MODULES = [
     'ops._build', 'models.basis', 'models.kernel', 'models.mean',
     'models.packed', 'models.objectives', 'models.priors',
     'models.divergences', 'models.gp', 'train.adam', 'bo.acfun',
-    'bo.bayesopt', 'bo.const']
+    'bo.bayesopt', 'bo.const', 'bo.ondevice']
 
 
 def test_port_imports_without_jax():

@@ -12,7 +12,14 @@ and measures, in one process on one card:
   * ms/iter of EI BO over 10,000 candidates;
   * a torch.profiler window over training steps and one over BO
     iterations: the device's busy and idle share of the window's wall
-    time, and the kernels taking the most device time.
+    time, and the kernels taking the most device time;
+  * the compile-once paths of chip_smoke.py's phases 13-15, each timed and
+    then profiled the same way, with the device activities (kernels,
+    copies, fills) a step or an iteration: the packed runner
+    (make_fit_adam_packed with fast_subsample), the plain on-device BO at
+    bench.py's configuration (EI, 10,000 candidates, 100 iterations), its
+    q-batch runner (q = 4) and its retrain runner (every 5 iterations, 10
+    steps, 8 tasks x 100 points).
 
 The swap to the plain version exists only in this measurement script; the
 library itself never routes a CUDA tensor around the kernel.
@@ -73,7 +80,9 @@ def _busy_share(prof, wall_us):
   return busy / wall_us if wall_us else float('nan')
 
 
-def _profile(fn, title):
+def _profile(fn, title, count=None):
+  """Profile one call of fn; with `count` (steps or iterations in the
+  call), also the device activities per step or iteration."""
   torch.cuda.synchronize()
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
@@ -82,10 +91,72 @@ def _profile(fn, title):
     torch.cuda.synchronize()
     wall_us = (time.perf_counter() - t0) * 1e6
   share = _busy_share(prof, wall_us)
+  per = ''
+  if count:
+    n = sum(1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+    per = f', {n / count:.1f} device activities per step or iteration'
   print(f'--- {title}: window {wall_us / 1e3:.3f} ms, device busy '
-        f'{100 * share:.1f}%, idle {100 * (1 - share):.1f}%')
+        f'{100 * share:.1f}%, idle {100 * (1 - share):.1f}%{per}')
   print(prof.key_averages().table(sort_by='self_cuda_time_total',
                                   row_limit=12, max_name_column_width=60))
+
+
+def _timed_ms(fn, count):
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  fn()
+  torch.cuda.synchronize()
+  return (time.perf_counter() - t0) * 1e3 / count
+
+
+def _compile_once_paths(model, candidates, dev):
+  """Time, then profile, the packed runner and the three on-device BO
+  runners at chip_smoke.py's shapes and depths."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import adam
+
+  steps, iters = chip_smoke.STEPS, chip_smoke.BO_LOOP_ITERS
+  config = dict(model.params.config, fast_subsample=True,
+                max_training_step=steps)
+  packed, _ = packed_lib.pack_dataset(model.dataset, pad_to_multiple=128,
+                                      device=dev)
+  run = adam.make_fit_adam_packed(mean.linear_mlp,
+                                  kernel.squared_exponential_mlp, config,
+                                  warp_func=DEFAULT_WARP_FUNC)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  train = lambda: run(model.params.model, packed, gen)
+  train()
+  print(f'packed runner (fast_subsample): {_timed_ms(train, steps):.3f} '
+        'ms/step')
+  _profile(train, f'packed runner, {steps} steps', steps)
+
+  bo_model = chip_smoke.bo_model(dev)
+  queried = defs.SubDataset(torch.from_numpy(candidates[0]).to(dev),
+                            torch.from_numpy(candidates[1]).to(dev))
+  common = (mean.constant, kernel.squared_exponential, bo_model,
+            {'learning_rate': 1e-2}, DEFAULT_WARP_FUNC, queried)
+  pp = chip_smoke.retrain_corpus(dev)
+  q = chip_smoke.QBATCH
+  runs = {
+      'plain': (lambda: ondevice.simulated_bayesopt_ondevice(
+          *common, iters, num_train_tasks=chip_smoke.TASKS, generator=gen,
+          device=dev), iters),
+      'q-batch': (lambda: ondevice.simulated_bayesopt_ondevice_qbatch(
+          *common, iters // q, q=q,
+          num_train_tasks=chip_smoke.RETRAIN_TASKS, generator=gen,
+          device=dev), iters // q),
+      'retrain': (lambda: ondevice.simulated_bayesopt_ondevice_retrain(
+          *common, iters, num_train_tasks=chip_smoke.RETRAIN_TASKS,
+          pretrain_packed=pp, retrain_every=chip_smoke.RETRAIN_EVERY,
+          retrain_steps=chip_smoke.RETRAIN_STEPS, generator=gen,
+          device=dev), iters),
+  }
+  for name, (fn, count) in runs.items():
+    fn()
+    print(f'on-device BO, {name}: {_timed_ms(fn, count):.3f} ms/iter')
+    _profile(fn, f'on-device BO, {name}, {count} iterations', count)
 
 
 def main():
@@ -120,7 +191,7 @@ def main():
 
   model.params.config['max_training_step'] = 5
   _profile(lambda: model.train(
-      torch.Generator(device=dev).manual_seed(2)), 'training, 5 steps')
+      torch.Generator(device=dev).manual_seed(2)), 'training, 5 steps', 5)
 
   cand = defs.SubDataset(*candidates)
   bayesopt.simulated_bayesopt(model, 'warm', cand, acfun.ei, 3)
@@ -132,7 +203,8 @@ def main():
         f'ms/iter over {len(candidates[0])} candidates')
   _profile(lambda: bayesopt.simulated_bayesopt(model, 'test', cand,
                                                acfun.ei, 5),
-           'BO, 5 iterations')
+           'BO, 5 iterations', 5)
+  _compile_once_paths(model, candidates, dev)
 
 
 if __name__ == '__main__':
