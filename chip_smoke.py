@@ -112,11 +112,36 @@ exits non-zero and the final ok line is never printed:
   16. run_bayesopt_ondevice on phase 4's pre-trained GP: 20 EI iterations
      over its candidates through the GP branch's dispatcher, with how many
      of its first selections are phase 4's host loop's;
-  17. one JSON line with the kernels' numbers (each with its bound from the
+  17. the fixed-sample HGP runner at bench.py's BO configuration (phase
+     14's candidates and model, 100 EI iterations, 23 training tasks) with
+     S = 8 samples (phase 14's model jittered in unconstrained space): two
+     calls, both sync-free, equal; S identical samples give phase 14's
+     selections bitwise; sample 0's posterior from its final W against a
+     fresh float64 Cholesky (1e-4 of the largest value); ms/iter;
+  18. the re-sampling HGP runner at bench.py's hgp_resample configuration
+     (8 chains jittered from phase 14's model, 8 training tasks, phase
+     15's corpus of 8 tasks x 100 points packed to 128 rows, a sweep every
+     5 iterations, 100 iterations): sweeps = 0 without jitter gives phase
+     14's selections bitwise; the samples finite and moved from their
+     starts; K1 launched once per batched corpus evaluation (all chains
+     and stepping-out edges in one launch); the flags read back per
+     re-sampling; ms/iter; one corpus log prob batched over the 8 chains
+     on the card against the CPU's plain route (rtol 1e-4);
+  19. the hyperbo_ss method: run_bayesopt(method='hyperbo_ss',
+     init_model=True) on phase 4's 23 tasks with constant mean and SE
+     kernel, the device sampler (2 burn-in sweeps, 4 samples: the sampling
+     config forced by bayesopt cut to burnin = 2, nsamples = 2), then 20
+     EI iterations over the 10,000 candidates through
+     HGP.predict_stacked; the samples' log probs finite, the observations
+     distinct candidates; run_bayesopt_ondevice on the same HGP (fixed
+     samples, 20 iterations) and with config['retrain'] = 1 on phase 15's
+     corpus (the re-sampling runner, 5 iterations); HGP.stats() on the
+     8-task corpus;
+  20. one JSON line with the kernels' numbers (each with its bound from the
      bytes and operations of its inputs, and the time of one PyTorch call
      computing the same function where there is one; K1 and K5 also with
-     their device time, device_ms; K1 with its launches on each path),
-     then the ok line.
+     their device time, device_ms; K1 with its launches on each path,
+     the re-sampling runner's among them), then the ok line.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -153,6 +178,10 @@ HOST_BO_ITERS = 10
 BO_POSTERIOR_RTOL = 1e-4
 QBATCH = 4
 RETRAIN_TASKS, RETRAIN_EVERY, RETRAIN_STEPS = 8, 5, 10
+# The HGP paths (phases 17-19): bench.py's hgp_resample leg.
+HGP_SAMPLES, RESAMPLE_EVERY, RESAMPLE_SWEEPS = 8, 5, 1
+HGP_JITTER = 0.1
+SS_BURNIN, SS_NSAMPLES, SS_BO_ITERS, SS_RESAMPLE_ITERS = 2, 2, 20, 5
 
 # The fused large-n path (phases 5-7).
 FUSED_TASKS = ((8192, 'a'), (5000, 'b'))
@@ -1440,18 +1469,23 @@ def phase_ondevice_bo(candidates, dev, card):
   return sel, iter_ms, host_ms
 
 
-def retrain_corpus(dev):
-  """bench.py's retrain corpus: 8 tasks x 100 points of
-  y = sin(3 x @ w), packed with pad_to_multiple=128 (K1's regime)."""
+def corpus_tasks():
+  """bench.py's retrain corpus: 8 tasks x 100 points of y = sin(3 x @ w)."""
   from hyperbo_tpu_torch.core import defs
-  from hyperbo_tpu_torch.models import packed as packed_lib
   rng = np.random.default_rng(100)
   corpus = {}
   for i in range(RETRAIN_TASKS):
     x = rng.uniform(size=(100, DIM)).astype(np.float32)
     y = np.sin(3 * x @ rng.normal(size=(DIM, 1))).astype(np.float32)
     corpus[i] = defs.SubDataset(x, y)
-  return packed_lib.pack_dataset(corpus, pad_to_multiple=128, device=dev)[0]
+  return corpus
+
+
+def retrain_corpus(dev):
+  """The retrain corpus packed with pad_to_multiple=128 (K1's regime)."""
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  return packed_lib.pack_dataset(corpus_tasks(), pad_to_multiple=128,
+                                 device=dev)[0]
 
 
 def phase_bo_variants(candidates, sel_plain, batch_chol, dev, card):
@@ -1572,6 +1606,281 @@ def phase_dispatcher(dataset, candidates, trained_params, host_obs, dev,
   return iter_ms
 
 
+def hgp_samples(dev, count=HGP_SAMPLES):
+  """`count` samples of bench.py's BO model: sample 0 the model, the others
+  jittered by N(0, 0.1^2) in unconstrained space (numpy seed 7)."""
+  from hyperbo_tpu_torch.train import slice_sampler
+  flat, unravel = slice_sampler.ravel_model(bo_model(dev))
+  noise = np.random.default_rng(7).normal(size=(count, flat.shape[0]))
+  noise[0] = 0.0
+  rows = flat + HGP_JITTER * torch.from_numpy(noise.astype(np.float32)).to(
+      dev)
+  return [unravel(row.clone()) for row in rows]
+
+
+def phase_hgp_fixed(candidates, sel_plain, dev, card):
+  """Phase 17: the fixed-sample HGP runner at bench.py's configuration.
+  Returns ms/iter of its second call."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.core import convert, defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import kernel, mean
+
+  config = {'learning_rate': 1e-2}
+  cand_x = torch.from_numpy(candidates[0]).to(dev)
+  cand_y = torch.from_numpy(candidates[1]).to(dev)
+  samples = hgp_samples(dev)
+  stacked = convert.stack_models(samples, dev)
+  run = ondevice.make_bo_hgp_runner(
+      mean.constant, kernel.squared_exponential, config, DEFAULT_WARP_FUNC,
+      'ei', BO_LOOP_ITERS, 0, BO_LOOP_ITERS, HGP_SAMPLES, TASKS)
+  x0 = cand_x.new_zeros((0, DIM))
+  gen = torch.Generator(device=dev).manual_seed(0)
+  with no_host_sync():
+    x_buf, y_buf, sel, facs = run(stacked, x0, x0[:, :1], cand_x, cand_y,
+                                  gen, return_factor=True)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with no_host_sync():
+    _, _, sel2 = ondevice.simulated_bayesopt_ondevice_hgp(
+        mean.constant, kernel.squared_exponential, samples, config,
+        DEFAULT_WARP_FUNC, defs.SubDataset(cand_x, cand_y), BO_LOOP_ITERS,
+        num_train_tasks=TASKS, generator=gen, device=dev)
+  torch.cuda.synchronize()
+  iter_ms = (time.perf_counter() - t0) * 1e3 / BO_LOOP_ITERS
+  if not torch.equal(sel, sel2):
+    raise AssertionError('two HGP runner calls differ')
+  if not (torch.isfinite(x_buf).all() and torch.isfinite(y_buf).all()):
+    raise AssertionError('HGP runner: non-finite observations')
+
+  same = convert.stack_models([bo_model(dev)] * HGP_SAMPLES, dev)
+  with no_host_sync():
+    _, _, sel_same = run(same, x0, x0[:, :1], cand_x, cand_y, gen)
+  if not torch.equal(sel_same, sel_plain):
+    j = int(torch.nonzero(sel_same != sel_plain)[0, 0])
+    raise AssertionError(f'{HGP_SAMPLES} identical samples part from the '
+                         f'plain runner at iteration {j}')
+  log(f'HGP runner with {HGP_SAMPLES} identical samples: phase 14\'s '
+      f'{BO_LOOP_ITERS} selections, bitwise')
+
+  scale = ondevice._unbiased_scale(TASKS)
+  shim = defs.GPParams(model=samples[0], config=config)
+  mu, var = ondevice._masked_posterior(
+      mean.constant, kernel.squared_exponential, shim, DEFAULT_WARP_FUNC,
+      ondevice._noise(shim, DEFAULT_WARP_FUNC), scale, x_buf, y_buf,
+      facs[0], BO_LOOP_ITERS, cand_x)
+  mu64, var64 = float64_posterior(x_buf, y_buf, cand_x, samples[0], scale)
+  errs = {'mu': _rel(mu, mu64), 'var': _rel(var, var64)}
+  log(f'HGP runner: sample 0\'s posterior from its final W vs a fresh '
+      f'float64 Cholesky: max rel err mu {errs["mu"]:.3e}, var '
+      f'{errs["var"]:.3e} (of the largest value)')
+  if not max(errs.values()) <= BO_POSTERIOR_RTOL:
+    raise AssertionError(f'HGP W posterior differs from float64: {errs}')
+  log(f'HGP runner (fixed samples, S = {HGP_SAMPLES}, ei, {CANDIDATES} '
+      f'candidates, {BO_LOOP_ITERS} iterations): second call '
+      f'{iter_ms:.3f} ms/iter, no host sync inside [{card}]')
+  return iter_ms
+
+
+def phase_hgp_resample(candidates, sel_plain, batch_chol, dev, card):
+  """Phase 18: the re-sampling HGP runner at bench.py's hgp_resample
+  configuration. Returns (K1 launches of the timed run, ms/iter)."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import kernel, mean
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import slice_sampler
+
+  config = {'learning_rate': 1e-2}
+  queried = defs.SubDataset(torch.from_numpy(candidates[0]).to(dev),
+                            torch.from_numpy(candidates[1]).to(dev))
+  pp = retrain_corpus(dev)
+  common = (mean.constant, kernel.squared_exponential, bo_model(dev), config,
+            DEFAULT_WARP_FUNC, queried, BO_LOOP_ITERS)
+  gen = torch.Generator(device=dev).manual_seed(0)
+  _, _, sel0, _ = ondevice.simulated_bayesopt_ondevice_hgp_resample(
+      *common, num_samples=HGP_SAMPLES, num_train_tasks=TASKS,
+      pretrain_packed=pp, resample_every=RESAMPLE_EVERY, sweeps=0,
+      init_jitter=0.0, generator=gen, device=dev)
+  if not torch.equal(sel0, sel_plain):
+    raise AssertionError('sweeps = 0 without jitter parts from the plain '
+                         'runner')
+  log(f'HGP re-sampling runner, sweeps = 0, no jitter: phase 14\'s '
+      f'{BO_LOOP_ITERS} selections, bitwise')
+
+  stats = {}
+  batch_chol.KERNEL.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, y, sel, samples = ondevice.simulated_bayesopt_ondevice_hgp_resample(
+      *common, num_samples=HGP_SAMPLES, num_train_tasks=RETRAIN_TASKS,
+      pretrain_packed=pp, resample_every=RESAMPLE_EVERY,
+      sweeps=RESAMPLE_SWEEPS, generator=gen, device=dev, stats=stats)
+  torch.cuda.synchronize()
+  iter_ms = (time.perf_counter() - t0) * 1e3 / BO_LOOP_ITERS
+  launches = batch_chol.KERNEL.launches
+  resamplings = len(range(0, BO_LOOP_ITERS, RESAMPLE_EVERY))
+  log(f'HGP re-sampling runner: {resamplings} re-samplings, '
+      f'{stats["evaluations"]} batched corpus evaluations, K1 counted '
+      f'{launches}; {stats["readbacks"]} flags read back, '
+      f'{stats["readbacks"] / resamplings:.1f} per re-sampling '
+      f'({stats["evaluations"] / resamplings:.1f} evaluations per '
+      're-sampling)')
+  if launches != stats['evaluations']:
+    raise AssertionError(f'K1 launched {launches} times for '
+                         f'{stats["evaluations"]} batched evaluations')
+  rows = torch.stack([slice_sampler.ravel_model(m)[0] for m in samples])
+  start = slice_sampler.ravel_model(bo_model(dev))[0]
+  if not (torch.isfinite(rows).all() and torch.isfinite(y).all()):
+    raise AssertionError('re-sampling run: non-finite samples or values')
+  # The chains start within a few jitters (0.1) of the model; sampling
+  # takes them beyond 4 jitters and apart.
+  moved = float((rows - start).abs().max())
+  spread = float(rows.std(dim=0).max())
+  log(f'HGP re-sampling runner: samples finite, largest distance of a '
+      f'coordinate from the model {moved:.4f}, largest spread across '
+      f'chains {spread:.4f}')
+  if not (moved > 4 * HGP_JITTER and
+          torch.unique(rows, dim=0).shape[0] == HGP_SAMPLES):
+    raise AssertionError('the chains did not move apart')
+
+  # One corpus log prob of the 8 final chains: the card against the CPU.
+  _, unravel = slice_sampler.ravel_model(samples[0])
+  x_buf = queried.x.index_select(0, sel[:10])
+  y_buf = queried.y.index_select(0, sel[:10])
+  values = []
+  for device in (dev, 'cpu'):
+    pp_d = packed_lib.PackedDataset(*[t.to(device) for t in pp])
+    values.append(ondevice._corpus_loss_batched(
+        mean.constant, kernel.squared_exponential, config,
+        DEFAULT_WARP_FUNC, 10, unravel(rows.to(device)), x_buf.to(device),
+        y_buf.to(device), 10, pretrain_packed=pp_d).cpu())
+  rel = float(((values[0] - values[1]).abs() / values[1].abs()).max())
+  log(f'corpus log prob of {HGP_SAMPLES} chains in one call: card vs cpu '
+      f'max rel diff {rel:.3e}')
+  if not rel <= STEP_LOSS_RTOL:
+    raise AssertionError(f'card/cpu corpus log prob differ by {rel}')
+  log(f'HGP re-sampling runner ({HGP_SAMPLES} chains, a sweep every '
+      f'{RESAMPLE_EVERY} iterations, corpus {RETRAIN_TASKS} x 100, ei, '
+      f'{CANDIDATES} candidates, {BO_LOOP_ITERS} iterations): '
+      f'{iter_ms:.3f} ms/iter [{card}]')
+  return launches, iter_ms, stats, resamplings
+
+
+def phase_hyperbo_ss(dataset, candidates, batch_chol, dev, card):
+  """Phase 19: the hyperbo_ss method end to end, then the dispatcher on
+  its HGP. Returns K1's launches in the dispatcher's re-sampling run."""
+  from hyperbo_tpu_torch.bo import acfun, bayesopt, ondevice
+  from hyperbo_tpu_torch.core import convert, defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.models import packed as packed_lib
+
+  queried = defs.SubDataset(*candidates)
+  params = defs.GPParams(
+      model={'constant': 0., 'lengthscale': np.zeros(DIM, np.float32),
+             'signal_variance': 0., 'noise_variance': -4.},
+      config={'max_training_step': 0, 'retrain': 0})
+  times = {}
+  sampling = dict(bayesopt._HGP_SAMPLING_CONFIG, burnin=SS_BURNIN,
+                  nsamples=SS_NSAMPLES)
+  with mock.patch.object(bayesopt, '_HGP_SAMPLING_CONFIG', sampling), \
+       mock.patch.object(gp.HGP, 'train', _timed(gp.HGP.train, times)):
+    t0 = time.perf_counter()
+    (xo, yo), best, trained = bayesopt.run_bayesopt(
+        dataset, 'test', queried, mean.constant, kernel.squared_exponential,
+        params, acfun.ei, SS_BO_ITERS, warp_func=DEFAULT_WARP_FUNC,
+        init_random_key=torch.Generator(device=dev).manual_seed(0),
+        method='hyperbo_ss', init_model=True, device=dev)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+  samples = trained.samples
+  packed, _ = packed_lib.pack_dataset(
+      {k: defs.SubDataset(*v) for k, v in dataset.items()}, device=dev)
+  with torch.no_grad():
+    nll = packed_lib.neg_log_marginal_likelihood_packed_batched(
+        mean.constant, kernel.squared_exponential, trained.config,
+        convert.stack_models(samples, dev), packed,
+        warp_func=DEFAULT_WARP_FUNC).cpu()
+  log(f'hyperbo_ss: {len(samples)} samples, their NLL with priors '
+      f'{[round(float(v), 4) for v in nll]}')
+  if len(samples) != 2 * SS_NSAMPLES or not torch.isfinite(nll).all():
+    raise AssertionError('hyperbo_ss samples missing or not finite')
+  xo, yo = xo.cpu(), yo.cpu()
+  cand_x = torch.from_numpy(candidates[0])
+  if (tuple(xo.shape) != (SS_BO_ITERS, DIM) or
+      not torch.isfinite(yo).all() or
+      torch.unique(xo, dim=0).shape[0] != SS_BO_ITERS or
+      not all(bool((cand_x == row).all(dim=1).any()) for row in xo)):
+    raise AssertionError('hyperbo_ss: observations are not distinct '
+                         'candidates')
+  bo_ms = (total_s - times['train']) * 1e3 / SS_BO_ITERS
+  log(f'hyperbo_ss at PD1 width ({TASKS} x {POINTS} x {DIM}, constant mean, '
+      f'SE): slice sampling {2 * SS_NSAMPLES} samples ({SS_BURNIN} burn-in '
+      f'sweeps, device sampler, 1 chain) {times["train"]:.2f} s; then '
+      f'{SS_BO_ITERS} EI iterations through predict_stacked, best y '
+      f'{float(yo.max()):.4f} (best candidate {float(best[1][0]):.4f}): '
+      f'{bo_ms:.3f} ms/iter [{card}]')
+
+  hgp = gp.HGP(dataset, mean.constant, kernel.squared_exponential,
+               defs.GPParams(model=trained.model, config=dict(trained.config),
+                             samples=samples), DEFAULT_WARP_FUNC, device=dev)
+  queried_d = defs.SubDataset(torch.from_numpy(candidates[0]).to(dev),
+                              torch.from_numpy(candidates[1]).to(dev))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  (xf, yf), _, _ = ondevice.run_bayesopt_ondevice(hgp, 'test', queried_d,
+                                                  SS_BO_ITERS)
+  torch.cuda.synchronize()
+  fixed_ms = (time.perf_counter() - t0) * 1e3 / SS_BO_ITERS
+  hgp.params.config['retrain'] = 1
+  batch_chol.KERNEL.launches = 0
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  (xr, yr), _, resampled = ondevice.run_bayesopt_ondevice(
+      hgp, 'test', queried_d, SS_RESAMPLE_ITERS,
+      pretrain_packed=retrain_corpus(dev))
+  torch.cuda.synchronize()
+  resample_ms = (time.perf_counter() - t0) * 1e3 / SS_RESAMPLE_ITERS
+  launches = batch_chol.KERNEL.launches
+  if not (tuple(xf.shape) == (SS_BO_ITERS, DIM) and
+          tuple(xr.shape) == (SS_RESAMPLE_ITERS, DIM) and
+          torch.isfinite(yf).all() and torch.isfinite(yr).all() and
+          len(resampled.samples) == 2 * SS_NSAMPLES and launches > 0):
+    raise AssertionError('run_bayesopt_ondevice on the HGP failed')
+  log(f'run_bayesopt_ondevice on the hyperbo_ss HGP: fixed samples '
+      f'{SS_BO_ITERS} iterations {fixed_ms:.3f} ms/iter; retrain = 1 (the '
+      f're-sampling runner on the {RETRAIN_TASKS}-task corpus) '
+      f'{SS_RESAMPLE_ITERS} iterations {resample_ms:.3f} ms/iter, K1 '
+      f'{launches} launches [{card}]')
+
+  corpus_hgp = gp.HGP(corpus_tasks(), mean.constant,
+                      kernel.squared_exponential,
+                      defs.GPParams(model=trained.model, samples=samples),
+                      DEFAULT_WARP_FUNC, device=dev)
+  t0 = time.perf_counter()
+  stats = corpus_hgp.stats(verbose=False)
+  stats_s = time.perf_counter() - t0
+  if not np.isfinite(stats[0]):
+    raise AssertionError(f'HGP.stats: nll {stats[0]}')
+  log(f'HGP.stats() over {len(samples)} samples on the {RETRAIN_TASKS}-task '
+      f'corpus: nll {stats[0]:.4f}, {stats_s:.2f} s [{card}]')
+  return launches
+
+
+def _timed(fn, times):
+  """fn, recording its wall time (synchronized) under times['train']."""
+  def wrapper(*args, **kwargs):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    times['train'] = time.perf_counter() - t0
+    return out
+  return wrapper
+
+
 def main():
   # The port first: without the repo's sources there is nothing to run.
   from hyperbo_tpu_torch.ops import (batch_chol, bwd_joint, chol_hbm,
@@ -1610,6 +1919,10 @@ def main():
   retrain_launches, _ = phase_bo_variants(candidates, sel_plain, batch_chol,
                                           dev, card)
   phase_dispatcher(dataset, candidates, trained, host_obs, dev, card)
+  phase_hgp_fixed(candidates, sel_plain, dev, card)
+  resample_launches, _, _, _ = phase_hgp_resample(candidates, sel_plain,
+                                                  batch_chol, dev, card)
+  ss_launches = phase_hyperbo_ss(dataset, candidates, batch_chol, dev, card)
 
   # Work of each kernel at the shapes timed above: minimal float32
   # operations, and bytes of its inputs read and outputs written once.
@@ -1655,11 +1968,15 @@ def main():
       'source': 'hyperbo_tpu_torch/csrc/batch_chol.cu',
       'replaces': 'hyperbo_tpu/ops/pallas_batch_chol.py:131',
       'launches': launches,
-      # K1's launches on this slice's other paths: one call of the packed
-      # runner (phase 13) and the retrain runner's run (phase 15).
+      # K1's launches on the other paths: one call of the packed runner
+      # (phase 13), the retrain runner's run (phase 15), the HGP
+      # re-sampling runner's run (phase 18) and the dispatcher's
+      # re-sampling run on the hyperbo_ss HGP (phase 19).
       'launches_by_path': {'run_bayesopt_pretraining': launches,
                            'make_fit_adam_packed': packed_launches,
-                           'ondevice_retrain': retrain_launches},
+                           'ondevice_retrain': retrain_launches,
+                           'ondevice_hgp_resample': resample_launches,
+                           'hyperbo_ss_resample_dispatch': ss_launches},
       'max_abs_err': err,
       'ms': k1_times['kernel'],
       'device_ms': measured(k1_times['device']),

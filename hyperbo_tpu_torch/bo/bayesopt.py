@@ -2,9 +2,10 @@
 
 Ported: `simulated_bayesopt` over a finite candidate set, the shared
 sequential loop `_bo_iterations`, `retrain_model`,
-`get_best_datapoint`, and the finite-candidate branch of `run_bayesopt`.
-The continuous-oracle `bayesopt` (L-BFGS-B refinement, input samplers),
-HGP methods and the contextual helpers wait (ROADMAP Queue A).
+`get_best_datapoint`, and the finite-candidate branch of `run_bayesopt`,
+for a GP or (method 'hyperbo_ss') an HGP sampled by the slice sampler.
+The continuous-oracle `bayesopt` (L-BFGS-B refinement, input samplers)
+and the contextual helpers wait (ROADMAP Queue A).
 
 Randomness comes from one torch.Generator threaded through the loop
 instead of split JAX keys.
@@ -21,8 +22,17 @@ from hyperbo_tpu_torch.bo import const
 from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.models import gp
 from hyperbo_tpu_torch.models import objectives as obj
+from hyperbo_tpu_torch.models import priors
 
 SubDataset = defs.SubDataset
+
+# Config forced onto HGP methods: posterior sampling by the slice sampler.
+_HGP_SAMPLING_CONFIG = {
+    'objective': 'nll',
+    'method': 'slice_sample',
+    'burnin': 50,
+    'nsamples': 50,
+}
 
 
 def get_best_datapoint(sub_dataset):
@@ -130,12 +140,17 @@ def simulated_bayesopt(
 
 def _build_model(method, dataset, mean_func, cov_func, init_params,
                  warp_func, device):
-  """GP for every method but the HGP ones, which are not ported yet."""
+  """GP or HGP by the method; an HGP method forces the sampling config
+  and the default hyperpriors."""
   if method in const.USE_HGP:
-    raise NotImplementedError(f'method {method!r} needs HGP, not ported '
-                              'yet: see ROADMAP Queue A')
-  return gp.GP(dataset=dataset, mean_func=mean_func, cov_func=cov_func,
-               params=init_params, warp_func=warp_func, device=device)
+    init_params.config.update(_HGP_SAMPLING_CONFIG,
+                              priors=priors.DEFAULT_PRIORS)
+    model_class = gp.HGP
+  else:
+    model_class = gp.GP
+  return model_class(dataset=dataset, mean_func=mean_func,
+                     cov_func=cov_func, params=init_params,
+                     warp_func=warp_func, device=device)
 
 
 def run_bayesopt(

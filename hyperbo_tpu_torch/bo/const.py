@@ -17,5 +17,5 @@ HBO_NLL = 'hyperbo_nll'
 HBO_NLLKL = 'hyperbo_nllkl'
 HBO_NLLEUC = 'hyperbo_nlleuc'
 
-# Methods that build an HGP (not ported yet) instead of a GP.
+# Methods that build an HGP instead of a GP.
 USE_HGP = [HBO_SS]

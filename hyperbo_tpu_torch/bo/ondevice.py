@@ -19,17 +19,29 @@ schedule depend only on the step index (count = n_init + i q), so they are
 Python ints, and the only values that depend on the data, the selected
 indices, stay on the device.
 
-Three runners, as in the JAX package: the plain loop (`make_bo_runner`),
-kriging-believer q-batch selection (`make_bo_qbatch_runner`) and periodic
+Five runners, as in the JAX package: the plain loop (`make_bo_runner`),
+kriging-believer q-batch selection (`make_bo_qbatch_runner`), periodic
 in-loop retraining with plain Adam on the corpus NLL
-(`make_bo_retrain_runner`); `run_bayesopt_ondevice` dispatches a built GP
-to one of them. The HGP runners, the continuous-domain loops and the mesh
-routes wait (ROADMAP Queue A) and raise. Only the default factor of
-HYPERBO_BO_SOLVER, 'winv', is ported.
+(`make_bo_retrain_runner`), and under an HGP the S posterior samples on a
+leading axis: fixed (`make_bo_hgp_runner`) or advanced by slice-sampling
+sweeps on the corpus posterior between selections
+(`make_bo_resample_runner`). The HGP runners build every sample's
+posterior and append with torch.func.vmap over the GP runners' pieces, and
+average the acquisition over the samples. `run_bayesopt_ondevice`
+dispatches a built GP or HGP to one of them. The continuous-domain loops
+and the mesh routes wait (ROADMAP Queue A) and raise. Only the default
+factor of HYPERBO_BO_SOLVER, 'winv', is ported.
 
-Randomness ('rand' and 'ts') comes from a torch.Generator on the device,
-through `_draw_index` and `_draw_normal`, the one place each draw is made,
-so that a test can substitute the JAX package's draws.
+The re-sampling runner alone reads the device inside its loop: its slice
+sampler reads one flag a chunk of shrinkage trips (train/slice_sampler).
+Its corpus log prob is evaluated for every chain (and every stepping-out
+edge) in one batched call, so one launch of kernel K1 factors all of their
+corpus tasks.
+
+Randomness ('rand' and 'ts', the HGP's sample index) comes from a
+torch.Generator on the device, through `_draw_index` and `_draw_normal`,
+and the re-sampling's through train/slice_sampler's draws, the one place
+each draw is made, so that a test can substitute the JAX package's draws.
 """
 
 from __future__ import annotations
@@ -48,6 +60,7 @@ from hyperbo_tpu_torch.models import packed as packed_lib
 from hyperbo_tpu_torch.ops import chol as chol_ops
 from hyperbo_tpu_torch.ops import linalg
 from hyperbo_tpu_torch.train import adam as adam_lib
+from hyperbo_tpu_torch.train import slice_sampler as slice_lib
 
 SubDataset = defs.SubDataset
 
@@ -226,19 +239,65 @@ def _corpus_loss(mean_func, cov_func, config, warp_func, n_max, model,
             mean_func, cov_func, p, aligned_packed, warp_func=warp_func,
             partial=ekl_partial))
   if 'priors' in config:
-    pw = defs.GPParams(model=model, config=config)
-    for k in model:
-      if k in config['priors']:
-        val, = retrieve_params(pw, [k], warp_func)
-        total = total - config['priors'][k](val)
+    total = _minus_priors(config, warp_func, model, total)
   return total
 
 
-def _masked_refactor(mean_func, cov_func, config, warp_func, model,
-                     x_buf, count: int, eps: float = 1e-6):
-  """From-scratch W = L^{-1} of the test task's system on the first `count`
-  rows (padded rows identity, so later appends extend it)."""
-  _bo_solver()
+def _corpus_loss_batched(mean_func, cov_func, config, warp_func, n_max,
+                         stacked, x_buf, y_buf, count: int,
+                         pretrain_packed=None, aligned_packed=None,
+                         ekl_weight: float = 0.0, ekl_partial: bool = True,
+                         eps: float = 1e-6) -> torch.Tensor:
+  """_corpus_loss of every model of a stack (leaves with a leading axis B)
+  in one pass: (B,). The corpus tasks of all B models go to one batched
+  factorization (one launch of kernel K1 in its regime), the test task's B
+  systems to one batched Cholesky; each value equals _corpus_loss's."""
+  config = dict(config or {})
+  config_nopriors = {k: v for k, v in config.items() if k != 'priors'}
+  mask = torch.arange(n_max, device=x_buf.device) < count
+  kmat, delta = packed_lib.batched_masked_system(
+      mean_func, cov_func, config_nopriors, stacked, x_buf, y_buf, mask,
+      warp_func=warp_func, eps=eps)
+  nll_test = packed_lib.dense_nll(kmat, delta, count)
+  w_test = 1.0 if count > 0 else 0.0
+  if pretrain_packed is not None:
+    t_real = torch.sum(pretrain_packed.task_mask).to(nll_test.dtype)
+    mean_pre = packed_lib.neg_log_marginal_likelihood_packed_batched(
+        mean_func, cov_func, config_nopriors, stacked, pretrain_packed,
+        warp_func=warp_func, eps=eps)
+    total = ((mean_pre * t_real + w_test * nll_test) /
+             torch.clamp(t_real + w_test, min=1.0))
+  else:
+    total = w_test * nll_test
+  if aligned_packed is not None and ekl_weight:
+    total = total + ekl_weight * torch.stack([
+        packed_lib.multivariate_normal_divergence_packed(
+            mean_func, cov_func,
+            defs.GPParams(model=convert.model_at(stacked, r),
+                          config=config_nopriors),
+            aligned_packed, warp_func=warp_func, partial=ekl_partial)
+        for r in range(convert.stack_size(stacked))])
+  if 'priors' in config:
+    total = torch.func.vmap(
+        lambda m, t: _minus_priors(config, warp_func, m, t))(stacked, total)
+  return total
+
+
+def _minus_priors(config, warp_func, model, total):
+  """total minus the hyperprior log-probs of the model, one after another
+  in the model's key order."""
+  pw = defs.GPParams(model=model, config=config)
+  for k in model:
+    if k in config['priors']:
+      val, = retrieve_params(pw, [k], warp_func)
+      total = total - config['priors'][k](val)
+  return total
+
+
+def _test_system(cov_func, config, warp_func, model, x_buf, count: int,
+                 eps: float = 1e-6):
+  """The test task's masked K on the first `count` rows (padded rows
+  identity)."""
   p = defs.GPParams(model=model, config=config)
   nv, = retrieve_params(p, ['noise_variance'], warp_func=warp_func)
   n_max = x_buf.shape[0]
@@ -246,9 +305,28 @@ def _masked_refactor(mean_func, cov_func, config, warp_func, model,
   kmat = cov_func(p, x_buf, warp_func=warp_func)
   pair = mask[:, None] & mask[None, :]
   eye = torch.eye(n_max, dtype=kmat.dtype, device=kmat.device)
-  kmat = torch.where(pair, kmat, 0.0) + eye * torch.where(mask, nv + eps,
+  return torch.where(pair, kmat, 0.0) + eye * torch.where(mask, nv + eps,
                                                           1.0)
+
+
+def _masked_refactor(mean_func, cov_func, config, warp_func, model,
+                     x_buf, count: int, eps: float = 1e-6):
+  """From-scratch W = L^{-1} of the test task's system on the first `count`
+  rows (padded rows identity, so later appends extend it)."""
+  del mean_func
+  _bo_solver()
+  kmat = _test_system(cov_func, config, warp_func, model, x_buf, count, eps)
   return linalg.tri_inv_blocked(chol_ops.cholesky(kmat))
+
+
+def _masked_refactor_all(cov_func, config, warp_func, stacked, x_buf,
+                         count: int, eps: float = 1e-6):
+  """_masked_refactor of every model of a stack: the S systems built at
+  once, factored by one batched Cholesky, each inverted."""
+  _bo_solver()
+  kmat = torch.func.vmap(lambda m: _test_system(
+      cov_func, config, warp_func, m, x_buf, count, eps))(stacked)
+  return torch.func.vmap(linalg.tri_inv_blocked)(chol_ops.cholesky(kmat))
 
 
 def _append_factor(cov_func, shim, warp_func, noise_variance, eps,
@@ -678,6 +756,333 @@ def simulated_bayesopt_ondevice_retrain(
   return x_out[:total], y_out[:total], select_idx, model_out
 
 
+def _hgp_pieces(mean_func, cov_func, config, warp_func, acquisition,
+                num_samples: int, num_train_tasks: int, eps: float):
+  """(select, append_all) of the HGP runners over S models stacked on a
+  leading axis (`stacked`) and their S W buffers (`facs`, (S, N, N)).
+
+  select(stacked, facs, generator, cand_x, x_buf, y_buf, count) -> the
+  0-d index of the pick: a uniform draw ('rand'), one posterior draw of
+  the latent f under a uniformly drawn sample ('ts'), or the argmax of the
+  acquisition averaged over the samples' posteriors. append_all grows
+  every W by the new observation."""
+  acq_sub, kind = _ACQ_SUBS[acquisition]
+  scale = _unbiased_scale(num_train_tasks)
+
+  def shim(model):
+    return defs.GPParams(model=model, config=config)
+
+  def posterior(model, fac, x_buf, y_buf, count, cand_x):
+    return _masked_posterior(mean_func, cov_func, shim(model), warp_func,
+                             _noise(shim(model), warp_func), scale, x_buf,
+                             y_buf, fac, count, cand_x)
+
+  def select(stacked, facs, generator, cand_x, x_buf, y_buf, count):
+    if kind == 'rand':
+      return _draw_index(generator, cand_x.shape[0], cand_x.device)
+    if kind == 'ts':
+      s = _draw_index(generator, num_samples, cand_x.device)
+      model = convert.model_at(stacked, s)
+      mu, var = posterior(model, facs.index_select(0, s.reshape(1))[0],
+                          x_buf, y_buf, count, cand_x)
+      return _ts_index(mu, var, _noise(shim(model), warp_func), scale,
+                       _draw_normal(generator, tuple(mu.shape), mu.device))
+    mu_s, var_s = torch.func.vmap(
+        lambda m, f: posterior(m, f, x_buf, y_buf, count, cand_x))(stacked,
+                                                                   facs)
+    mask = torch.arange(y_buf.shape[0], device=y_buf.device) < count
+    target = _acq_param(kind, y_buf, mask, count)
+    scores = acfun.sample_mean(acq_sub(mu_s, torch.sqrt(var_s), target))
+    return torch.argmax(scores.flatten())
+
+  def append_all(stacked, facs, x_buf, count, x_new):
+    return torch.func.vmap(lambda m, f: _append_factor(
+        cov_func, shim(m), warp_func, _noise(shim(m), warp_func), eps,
+        x_buf, f, count, x_new))(stacked, facs)
+
+  return select, append_all
+
+
+def _hgp_buffers(cand_x, n_max: int, num_samples: int):
+  """Empty observation buffers and S identity W buffers."""
+  eye = chol_ops.init_chol_buffer(n_max, device=cand_x.device)
+  return (cand_x.new_zeros((n_max, cand_x.shape[1])),
+          cand_x.new_zeros((n_max, 1)),
+          eye.expand(num_samples, n_max, n_max).clone())
+
+
+def _hgp_observe(append_all, stacked, facs, x_buf, y_buf, count, x_new,
+                 y_new):
+  """Every W grown by (x_new (1, d), y_new (1, 1)), written at row count."""
+  facs = append_all(stacked, facs, x_buf, count, x_new)
+  x_buf[count:count + 1] = x_new
+  y_buf[count:count + 1] = y_new.reshape(1, 1)
+  return facs
+
+
+def make_bo_hgp_runner(mean_func, cov_func, config, warp_func,
+                       acquisition: str, iters: int, n_init: int,
+                       n_max: int, num_samples: int,
+                       num_train_tasks: int):
+  """The HGP runner with fixed samples, run(stacked, x0, y0, cand_x,
+  cand_y, generator, return_factor=False) -> (x_buf, y_buf, select_idx[,
+  facs]): `stacked` holds the S posterior samples on a leading axis. Every
+  iteration builds the S posteriors at once (torch.func.vmap over the GP
+  runner's posterior), picks by the acquisition averaged over them, and
+  grows the S W buffers at once. Nothing is read back inside the loop."""
+  _bo_solver()
+  _check_capacity(n_max, n_init + iters)
+  select, append_all = _hgp_pieces(mean_func, cov_func, config, warp_func,
+                                   acquisition, num_samples,
+                                   num_train_tasks, 1e-6)
+
+  @torch.no_grad()
+  def run(stacked, x0, y0, cand_x, cand_y, generator, return_factor=False):
+    x_buf, y_buf, facs = _hgp_buffers(cand_x, n_max, num_samples)
+    for i in range(n_init):
+      facs = _hgp_observe(append_all, stacked, facs, x_buf, y_buf, i,
+                          x0[i:i + 1], y0[i:i + 1])
+    select_idx = torch.empty((iters,), dtype=torch.int64,
+                             device=cand_x.device)
+    for i in range(iters):
+      count = n_init + i
+      idx = select(stacked, facs, generator, cand_x, x_buf, y_buf, count)
+      row = idx.reshape(1)
+      facs = _hgp_observe(append_all, stacked, facs, x_buf, y_buf, count,
+                          cand_x.index_select(0, row),
+                          cand_y.index_select(0, row))
+      select_idx[i] = idx
+    out = (x_buf, y_buf, select_idx)
+    return out + (facs,) if return_factor else out
+
+  return run
+
+
+def simulated_bayesopt_ondevice_hgp(
+    mean_func,
+    cov_func,
+    model_params_samples,
+    config,
+    warp_func,
+    queried_sub_dataset: SubDataset,
+    iters: int,
+    acquisition: str = 'ei',
+    num_train_tasks: int = 0,
+    init_obs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    n_max: Optional[int] = None,
+    mesh=None,
+    mesh_axis: str = 'task',
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device] = 'cuda',
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """On-device BO under an HGP (make_bo_hgp_runner): S posterior samples,
+  their posteriors and W appends batched, the acquisition the mean of the
+  per-sample acquisitions ('ts': a sample drawn, then the function).
+
+  Args:
+    model_params_samples: list of model dicts (params.samples) or a dict
+      already stacked on a leading sample axis S.
+    The others as simulated_bayesopt_ondevice.
+
+  Returns:
+    (x_observed, y_observed, selected_indices) as the GP variant.
+  """
+  del mesh_axis
+  _no_mesh(mesh)
+  device = _device_of(queried_sub_dataset.x, device)
+  cand_x, cand_y, x0, y0 = _inputs(queried_sub_dataset, init_obs, device)
+  if isinstance(model_params_samples, (list, tuple)):
+    stacked = convert.stack_models(list(model_params_samples), device)
+  else:
+    stacked = convert.model_to(model_params_samples, device)
+  n_init = x0.shape[0]
+  if n_max is None:
+    n_max = n_init + iters
+  run = make_bo_hgp_runner(mean_func, cov_func, config, warp_func,
+                           acquisition, iters, n_init, n_max,
+                           convert.stack_size(stacked), num_train_tasks)
+  x_out, y_out, select_idx = run(stacked, x0, y0, cand_x, cand_y,
+                                 _generator(generator, device))
+  total = n_init + iters
+  return x_out[:total], y_out[:total], select_idx
+
+
+def make_bo_resample_runner(mean_func, cov_func, config, warp_func,
+                            template_model, acquisition: str,
+                            iters: int, n_init: int, n_max: int,
+                            num_samples: int, num_train_tasks: int,
+                            resample_every: int = 1, sweeps: int = 2,
+                            width: float = 1.0, max_steps_out: int = 10,
+                            max_shrink: int = 100,
+                            init_jitter: float = 0.1,
+                            init_mode: str = 'jitter',
+                            ekl_weight: float = 0.0,
+                            eps: float = 1e-6):
+  """The HGP runner with in-loop re-sampling.
+
+  Returns (run, unravel): run(init_arr, x0_obs, y0_obs, cand_x, cand_y,
+  pretrain_packed, aligned_packed, generator, stats=None) -> (x_buf,
+  y_buf, select_idx, xs_final). The S samples are the rows of xs (S, p),
+  the models raveled (slice_sampler.ravel_model of template_model; unravel
+  maps rows back). init_arr is the raveled start model (init_mode
+  'jitter': sample s > 0 adds N(0, init_jitter^2) noise) or the (S, p)
+  chain starts (init_mode 'samples').
+
+  Before iteration i, when i % resample_every == 0, every chain advances
+  `sweeps` slice-sampling sweeps (train/slice_sampler.run_chains) on the
+  posterior of the corpus and the test task's first `count` rows
+  (_corpus_loss: pretrain_packed, aligned_packed with ekl_weight, the
+  priors of config), each evaluation one batched call over the chains and
+  stepping-out edges; then every sample's W is refactored. A target that
+  is flat with no observation (no corpus, no priors) is not sampled until
+  the first observation. Selection and appends are the fixed-sample
+  runner's. `stats` counts the batched evaluations and the flags the
+  sampler read back.
+  """
+  _bo_solver()
+  _check_capacity(n_max, n_init + iters)
+  config = dict(config or {})
+  config_nopriors = {k: v for k, v in config.items() if k != 'priors'}
+  _, unravel = slice_lib.ravel_model(template_model)
+  select, append_all = _hgp_pieces(mean_func, cov_func, config_nopriors,
+                                   warp_func, acquisition, num_samples,
+                                   num_train_tasks, eps)
+
+  @torch.no_grad()
+  def run(init_arr, x0_obs, y0_obs, cand_x, cand_y, pp, ap, generator,
+          stats=None):
+    if init_mode == 'samples':
+      xs = init_arr
+    else:
+      noise = slice_lib._draw_jitter(generator, num_samples,
+                                     init_arr.shape[0], init_arr.device)
+      jitter = torch.where(
+          torch.arange(num_samples, device=init_arr.device) > 0,
+          init_jitter, 0.0)
+      xs = init_arr + jitter[:, None] * noise
+    flat_target = not (pp is not None or (ap is not None and ekl_weight)
+                       or 'priors' in config)
+    x_buf, y_buf, facs = _hgp_buffers(cand_x, n_max, num_samples)
+    for i in range(n_init):
+      facs = _hgp_observe(append_all, unravel(xs), facs, x_buf, y_buf, i,
+                          x0_obs[i:i + 1], y0_obs[i:i + 1])
+    select_idx = torch.empty((iters,), dtype=torch.int64,
+                             device=cand_x.device)
+    for i in range(iters):
+      count = n_init + i
+      if (sweeps > 0 and i % resample_every == 0 and
+          not (flat_target and count == 0)):
+        def log_prob(v, count=count):
+          return -_corpus_loss_batched(
+              mean_func, cov_func, config, warp_func, n_max, unravel(v),
+              x_buf, y_buf, count, pretrain_packed=pp, aligned_packed=ap,
+              ekl_weight=ekl_weight, eps=eps)
+
+        ll = log_prob(xs)
+        if stats is not None:
+          stats['evaluations'] = stats.get('evaluations', 0) + 1
+        xs, _, _ = slice_lib.run_chains(
+            log_prob, xs, ll, generator, sweeps, width=width,
+            max_steps_out=max_steps_out, max_shrink=max_shrink,
+            stats=stats)
+        facs = _masked_refactor_all(cov_func, config_nopriors, warp_func,
+                                    unravel(xs), x_buf, count, eps=eps)
+      stacked = unravel(xs)
+      idx = select(stacked, facs, generator, cand_x, x_buf, y_buf, count)
+      row = idx.reshape(1)
+      facs = _hgp_observe(append_all, stacked, facs, x_buf, y_buf, count,
+                          cand_x.index_select(0, row),
+                          cand_y.index_select(0, row))
+      select_idx[i] = idx
+    return x_buf, y_buf, select_idx, xs
+
+  return run, unravel
+
+
+def simulated_bayesopt_ondevice_hgp_resample(
+    mean_func,
+    cov_func,
+    model_params,
+    config,
+    warp_func,
+    queried_sub_dataset: SubDataset,
+    iters: int,
+    acquisition: str = 'ei',
+    num_samples: int = 8,
+    num_train_tasks: int = 0,
+    init_obs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    n_max: Optional[int] = None,
+    pretrain_packed=None,
+    aligned_packed=None,
+    ekl_weight: float = 0.0,
+    resample_every: int = 1,
+    sweeps: int = 2,
+    width: float = 1.0,
+    max_steps_out: int = 10,
+    max_shrink: int = 100,
+    init_jitter: float = 0.1,
+    init_samples=None,
+    eps: float = 1e-6,
+    mesh=None,
+    mesh_axis: str = 'task',
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device] = 'cuda',
+    stats=None,
+):
+  """On-device HGP BO with in-loop posterior re-sampling
+  (make_bo_resample_runner).
+
+  Args:
+    model_params: starting model dict (sample 0 starts here; samples s > 0
+      add N(0, init_jitter^2) noise in unconstrained space).
+    num_samples: S parallel chains, one posterior sample each.
+    init_samples: optional list of S model dicts (e.g. an HGP's
+      params.samples) the chains start from instead of the jitter.
+    pretrain_packed / aligned_packed / ekl_weight: the sampling target's
+      corpus, as simulated_bayesopt_ondevice_retrain.
+    resample_every / sweeps: cadence and sweeps a re-sampling (sweeps = 0
+      keeps the samples fixed).
+    width / max_steps_out / max_shrink: the slice sampler's.
+    stats: counts of batched evaluations and flags read back, if given.
+    The others as simulated_bayesopt_ondevice.
+
+  Returns:
+    (x_observed, y_observed, selected_indices, samples): samples the final
+    list of S model dicts (the HGP params.samples contract).
+  """
+  del mesh_axis
+  _no_mesh(mesh)
+  device = _device_of(queried_sub_dataset.x, device)
+  cand_x, cand_y, x0, y0 = _inputs(queried_sub_dataset, init_obs, device)
+  n_init = x0.shape[0]
+  if n_max is None:
+    n_max = n_init + iters
+  config = dict(config or {})
+  template = init_samples[0] if init_samples is not None else model_params
+  if init_samples is not None:
+    num_samples = len(init_samples)
+    init_arr = torch.stack([slice_lib.ravel_model(s, device)[0]
+                            for s in init_samples])
+    init_mode = 'samples'
+  else:
+    init_arr = slice_lib.ravel_model(template, device)[0]
+    init_mode = 'jitter'
+  run, unravel = make_bo_resample_runner(
+      mean_func, cov_func, config, warp_func, template, acquisition, iters,
+      n_init, n_max, num_samples, num_train_tasks,
+      resample_every=resample_every, sweeps=sweeps, width=width,
+      max_steps_out=max_steps_out, max_shrink=max_shrink,
+      init_jitter=init_jitter, init_mode=init_mode, ekl_weight=ekl_weight,
+      eps=eps)
+  x_out, y_out, select_idx, xs = run(init_arr, x0, y0, cand_x, cand_y,
+                                     pretrain_packed, aligned_packed,
+                                     _generator(generator, device),
+                                     stats=stats)
+  total = n_init + iters
+  return (x_out[:total], y_out[:total], select_idx,
+          [unravel(row) for row in xs])
+
+
 def default_retrain_corpus(dataset, sub_dataset_key):
   """(corpus, dropped_keys): the sub-datasets the in-loop retraining
   objective can pack (single-output, unaligned, non-empty) and the keys it
@@ -707,20 +1112,22 @@ def run_bayesopt_ondevice(
   """On-device counterpart of bayesopt.run_bayesopt for a built GP, on the
   GP's device.
 
-  Dispatches as the JAX package does: config['retrain'] > 0 -> in-loop
-  retraining (the corpus defaults to the model's single-output unaligned
-  sub-datasets, packed with pad_to_multiple=8); q > 1 -> kriging-believer
-  batches of q (iters counts evaluations and must divide by q); else the
-  plain loop. Observations already on `sub_dataset_key` seed the buffers.
-  An HGP and `mesh=` raise (not ported).
+  Dispatches as the JAX package does: an HGP -> the fixed-sample HGP
+  runner, or with config['retrain'] > 0 the re-sampling runner (chains
+  from its samples, `retrain` sweeps every `retrain_every` iterations);
+  a GP with config['retrain'] > 0 -> in-loop retraining; q > 1 ->
+  kriging-believer batches of q (iters counts evaluations and must divide
+  by q; an HGP raises); else the plain loop. The corpus of the retraining
+  and the re-sampling defaults to the model's single-output unaligned
+  sub-datasets, packed with pad_to_multiple=8. Observations already on
+  `sub_dataset_key` seed the buffers. `mesh=` raises (not ported).
 
   Returns ((x_observed, y_observed), best_datapoint_of_queried, params);
-  with retraining the params hold the retrained model.
+  with retraining the params hold the retrained model, with re-sampling
+  the final samples.
   """
   from hyperbo_tpu_torch.bo import bayesopt as bayesopt_lib
 
-  if isinstance(model, gp_lib.HGP):
-    raise gp_lib._not_ported('the on-device BO loops under an HGP')
   _no_mesh(mesh)
   retrain = (model.params.config or {}).get('retrain', 0)
   n_unaligned = len(
@@ -746,7 +1153,26 @@ def run_bayesopt_ondevice(
         packed_lib.pack_dataset(corpus, pad_to_multiple=8,
                                 device=device)[0] if corpus else None)
 
-  if retrain > 0:
+  if isinstance(model, gp_lib.HGP):
+    if q > 1:
+      raise ValueError('HGP on-device BO does not support q-batch '
+                       'selection; use the host loop.')
+    if retrain > 0:
+      xo, yo, _, samples = simulated_bayesopt_ondevice_hgp_resample(
+          model.mean_func, model.cov_func, model.params.model,
+          model.params.config, model.warp_func,
+          pretrain_packed=pretrain_packed, aligned_packed=aligned_packed,
+          ekl_weight=ekl_weight, resample_every=retrain_every,
+          sweeps=retrain, init_samples=model.get_model_params_samples(),
+          **common)
+      model.params.samples = samples
+      model.params.cache = {}
+    else:
+      xo, yo, _ = simulated_bayesopt_ondevice_hgp(
+          model.mean_func, model.cov_func,
+          model.get_model_params_samples(), model.params.config,
+          model.warp_func, **common)
+  elif retrain > 0:
     if q > 1:
       raise ValueError('q-batch selection does not compose with '
                        'in-scan retraining yet.')

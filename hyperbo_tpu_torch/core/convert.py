@@ -6,6 +6,11 @@ Flax Dense layouts below ('mlp_params': {'Dense_i': {'kernel': (in, out),
 'bias': (out,)}}, 'linear_mean': {'kernel': (in, 1), 'bias': (1,)}). The
 conversion maps leaf for leaf: numpy (or anything numpy can read, such as
 a JAX array) to float32 tensors, and back. No JAX import is needed.
+
+A stack of models (the HGP's posterior samples, the slice sampler's
+chains) is one such dict whose leaves carry a leading axis: `stack_models`
+makes it, `model_at` takes one model out and `stack_size` reads its
+length.
 """
 
 from __future__ import annotations
@@ -45,3 +50,31 @@ def model_to(model: Dict[str, Any],
   return _map_tree(
       lambda leaf: torch.as_tensor(leaf, dtype=torch.float32, device=device),
       model)
+
+
+def stack_models(models, device=None) -> Dict[str, Any]:
+  """Models of the same layout -> one dict of float32 leaves stacked on a
+  leading axis."""
+  first = models[0]
+  if isinstance(first, dict):
+    return {k: stack_models([m[k] for m in models], device) for k in first}
+  return torch.stack([torch.as_tensor(m, dtype=torch.float32, device=device)
+                      for m in models])
+
+
+def model_at(stacked: Dict[str, Any], r) -> Dict[str, Any]:
+  """Model r of a stack; r an int, a slice (a smaller stack) or a 0-d
+  int64 tensor (a device index, taken with index_select, never read
+  back)."""
+  if torch.is_tensor(r):
+    return _map_tree(lambda leaf: leaf.index_select(0, r.reshape(1))[0],
+                     stacked)
+  return _map_tree(lambda leaf: leaf[r], stacked)
+
+
+def stack_size(stacked: Dict[str, Any]) -> int:
+  """The length of a stack of models."""
+  leaf = stacked
+  while isinstance(leaf, dict):
+    leaf = next(iter(leaf.values()))
+  return leaf.shape[0]

@@ -48,7 +48,8 @@ class GPParams:
       noise_variance, constant, mlp_params, linear_mean, ...), a nested dict
       of tensors that the trainer differentiates through.
     cache: mapping sub-dataset key -> GPCache.
-    samples: posterior samples of `model` (slice sampling; not ported yet).
+    samples: posterior samples of `model` (method 'slice_sample'; an HGP
+      averages over them).
   """
   config: Dict[str, Any] = dataclasses.field(default_factory=dict)
   model: Dict[str, Any] = dataclasses.field(default_factory=dict)

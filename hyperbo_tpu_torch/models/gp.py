@@ -2,13 +2,15 @@
 prediction (port of hyperbo_tpu/models/gp.py).
 
 Ported: `infer_parameters` with method 'adam' on the packed route (NLL,
-EKL, and NLL + c EKL objectives), `sample_from_gp`, the functional
-`predict`, and the `GP` class (initialize_params, train, the model
+EKL, and NLL + c EKL objectives) and method 'slice_sample' (the host or
+the device sampler of train/slice_sampler), `sample_from_gp`, the
+functional `predict`, the `GP` class (initialize_params, train, the model
 evaluation `stats` with its SVD NLL and EKL/EUC divergences,
 setup_predictor with the bucket-padded incremental Cholesky cache,
-update_sub_dataset, predict). `HGP`, the L-BFGS/BFGS/slice-sampling
-trainers, the host-loop trainer and the mesh routes wait (ROADMAP Queue A)
-and raise where a caller could reach them.
+update_sub_dataset, predict) and the `HGP` class, which averages over the
+posterior samples (predict_stacked: every sample's posterior with one
+batched factorization). The L-BFGS/BFGS trainers, the host-loop Adam and
+the mesh routes raise where a caller could reach them (ROADMAP Queue A).
 
 Every GP lives on one device (`device=`, the CUDA card unless the caller
 asks for the CPU); its data, parameters and random generator are kept
@@ -18,6 +20,7 @@ to the CPU.
 
 from __future__ import annotations
 
+import collections
 import logging
 from typing import Any, Callable, Dict, Optional, Tuple, Union
 
@@ -33,6 +36,7 @@ from hyperbo_tpu_torch.models import packed as packed_lib
 from hyperbo_tpu_torch.ops import chol as chol_ops
 from hyperbo_tpu_torch.ops import linalg
 from hyperbo_tpu_torch.train import adam as adam_lib
+from hyperbo_tpu_torch.train import slice_sampler as slice_lib
 
 GPCache = defs.GPCache
 SubDataset = defs.SubDataset
@@ -128,9 +132,11 @@ def infer_parameters(mean_func,
                      get_params_path=None,
                      callback=None,
                      device: Union[str, torch.device] = 'cuda') -> GPParams:
-  """Fit GP (hyper)parameters to a multi-task dataset with Adam on the
-  packed route, on `device`. Returns init_params with the trained model
-  (kept only if the final loss is finite) and an emptied cache."""
+  """Fit GP (hyper)parameters to a multi-task dataset on `device`: Adam
+  on the packed route, or (method 'slice_sample') posterior samples.
+  Returns init_params with the trained model (kept only if the final loss
+  is finite) or the samples (params.samples, params.model the last one),
+  and an emptied cache."""
   if not dataset:
     logging.info('No dataset present to train GP.')
     return init_params
@@ -139,8 +145,18 @@ def infer_parameters(mean_func,
   params = init_params
   config = params.config
   method = config['method']
-  if method != 'adam':
+  if method not in ('adam', 'slice_sample'):
     raise _not_ported(f"training method {method!r}")
+  device = resolve_device(device)
+  if method == 'slice_sample':
+    # Sampling runs whatever max_training_step is, as in the JAX package.
+    params.samples = _slice_sample(objective, params, dataset, mean_func,
+                                   cov_func, warp_func, generator, callback,
+                                   device)
+    if params.samples:
+      params.model = params.samples[-1]
+    params.cache = {}
+    return params
   for route in ('distributed_mesh', 'task_mesh'):
     if config.get(route) is not None:
       raise _not_ported(f"config['{route}']")
@@ -149,7 +165,6 @@ def infer_parameters(mean_func,
   if int(config['max_training_step']) <= 0:
     return init_params
 
-  device = resolve_device(device)
   loss_fn, data, subsample_fn = _build_packed_training(
       objective, dataset, config, mean_func, cov_func, warp_func, device)
   model, losses = adam_lib.fit_adam_scan(
@@ -159,6 +174,62 @@ def infer_parameters(mean_func,
     params.model = model
   params.cache = {}
   return params
+
+
+def _batched_nll(objective, dataset, config, mean_func, cov_func,
+                 warp_func, device):
+  """The packed NLL of a stack of models in one batched call (K1 for
+  tasks of <= 128 rows), or None where the objective is not the plain NLL
+  or the data does not pack (multi-output tasks, pack_tasks False)."""
+  if getattr(objective, '_packed_spec', None) != ('nll', None):
+    return None
+  if not config.get('pack_tasks', True) or any(
+      s.y.shape[1] != 1 for s in dataset.values()
+      if s.aligned is None and s.x.shape[0] > 0):
+    return None
+  try:
+    packed, _ = packed_lib.pack_dataset(
+        dataset, pad_to_multiple=int(config.get('train_pad_to_multiple', 8)),
+        device=device)
+  except ValueError:
+    return None
+
+  def batched(stacked):
+    return packed_lib.neg_log_marginal_likelihood_packed_batched(
+        mean_func, cov_func, config, stacked, packed, warp_func=warp_func)
+
+  return batched
+
+
+def _slice_sample(objective, params, dataset, mean_func, cov_func,
+                  warp_func, generator, callback, device):
+  """params.samples of method 'slice_sample': the host sampler when a
+  callback is given or config['slice_sampler'] is 'host', else the device
+  sampler, whose evaluations batch over the chains through the packed NLL
+  where the objective is the plain NLL."""
+  config = params.config
+
+  def loss_func(model_params):
+    return objective(mean_func=mean_func, cov_func=cov_func,
+                     params=GPParams(model=model_params, config=config),
+                     dataset=dataset, warp_func=warp_func)
+
+  model = convert.model_to(params.model, device)
+  burnin = config.get('burnin', 50)
+  nsamples = config.get('nsamples', 50)
+  if callback is not None or config.get('slice_sampler',
+                                        'ondevice') == 'host':
+    return slice_lib.slice_sample(
+        loss_func, model, generator, burnin=burnin, nsamples=nsamples,
+        callback=callback,
+        logging_interval=config.get('logging_interval', 10))
+  return slice_lib.slice_sample_ondevice(
+      loss_func, model, generator, burnin=burnin, nsamples=nsamples,
+      num_chains=config.get('num_chains', 1),
+      init_jitter=config.get('chain_init_jitter', 0.0),
+      batched_objective_fn=_batched_nll(objective, dataset, config,
+                                        mean_func, cov_func, warp_func,
+                                        device))
 
 
 def sample_from_gp(generator: Optional[torch.Generator],
@@ -566,7 +637,105 @@ class GP:
 
 
 class HGP(GP):
-  """Hierarchical GP: not ported yet (needs the slice sampler)."""
+  """Hierarchical GP: averages stats and predictions over the posterior
+  samples of its parameters (params.samples, from method
+  'slice_sample')."""
 
-  def __init__(self, *args, **kwargs):
-    raise _not_ported('HGP')
+  def get_model_params_samples(self):
+    """params.samples if present, else the single point estimate."""
+    if self.params.samples:
+      return self.params.samples
+    return [self.params.model]
+
+  def stats(self, verbose: bool = True):
+    """GP.stats of every sample: the mean (nll, ekl, ekl_partial, euc) and
+    the per-key NLL averaged over the samples."""
+    samples = self.get_model_params_samples()
+    all_stats = []
+    all_key2nll = collections.defaultdict(float)
+    key2nll = {}
+    for model_params in samples:
+      self.update_model_params(model_params)
+      nll, ekl, ekl_partial, euc, key2nll = super().stats(verbose=False)
+      all_stats.append([float(v) for v in (nll, ekl, ekl_partial, euc)])
+      for k in key2nll:
+        all_key2nll[k] += float(key2nll[k])
+    for k in key2nll:
+      all_key2nll[k] /= len(samples)
+    nll, ekl, ekl_partial, euc = torch.tensor(
+        all_stats, dtype=torch.float64).mean(dim=0).tolist()
+    msg = (f'HGP nll = {nll}, ekl = {ekl}, ekl_partial = {ekl_partial}, '
+           f'euc = {euc}')
+    if verbose:
+      print(msg)
+    logging.info(msg)
+    return nll, ekl, ekl_partial, euc, dict(all_key2nll)
+
+  def predict(self,  # pylint: disable=arguments-differ
+              queried_inputs,
+              sub_dataset_key: Union[int, str] = 0,
+              full_cov: bool = False,
+              with_noise: bool = True):
+    """One (mu, cov) pair per posterior sample, each through GP.predict;
+    params.model is left at the last sample."""
+    results = []
+    for model_params in self.get_model_params_samples():
+      self.update_model_params(model_params)
+      results.append(super().predict(
+          queried_inputs=queried_inputs,
+          sub_dataset_key=sub_dataset_key,
+          full_cov=full_cov,
+          with_noise=with_noise))
+    return results
+
+  def predict_stacked(self,
+                      queried_inputs,
+                      sub_dataset_key: Union[int, str] = 0,
+                      with_noise: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every sample's posterior (mu, var), each (S, n', 1), in one pass.
+
+    The S samples are stacked on a leading axis: their systems are built
+    at once (torch.func.vmap), factored by ONE batched call of
+    ops/chol.cholesky and solved batched. The variances carry the noise
+    (with_noise) and GP.predict's N/(N-1) rescale over the unaligned
+    sub-datasets.
+    """
+    x_query = self._tensor(queried_inputs)
+    stacked = convert.stack_models(self.get_model_params_samples(),
+                                   self.device)
+    config = self.params.config
+    mean_func, cov_func, warp_func = (self.mean_func, self.cov_func,
+                                      self.warp_func)
+
+    def shim(model):
+      return GPParams(model=model, config=config)
+
+    sub = self.dataset.get(sub_dataset_key)
+    if sub is not None and sub.x.shape[0] > 0:
+      delta, cov = torch.func.vmap(
+          lambda m: linalg.compute_delta_y_and_cov(
+              mean_func, cov_func, shim(m), sub.x, sub.y, warp_func))(stacked)
+      chol = chol_ops.cholesky(cov)
+      kinvy = chol_ops.cho_solve(chol, delta)
+
+      def one(model, chol, kinvy):
+        return predict(mean_func, cov_func, shim(model), sub.x, sub.y,
+                       x_query, warp_func=warp_func,
+                       cache=GPCache(chol=chol, kinvy=kinvy,
+                                     needs_update=False))
+
+      mu, var = torch.func.vmap(one)(stacked, chol, kinvy)
+    else:
+      mu, var = torch.func.vmap(lambda m: predict(
+          mean_func, cov_func, shim(m), None, None, x_query,
+          warp_func=warp_func))(stacked)
+    if with_noise:
+      noise_variance, = retrieve_params(stacked, ['noise_variance'],
+                                        warp_func=warp_func)
+      var = var + noise_variance.reshape(-1, 1, 1)
+    n_unaligned = len(
+        [k for k, v in self.dataset.items() if v.aligned is None])
+    if n_unaligned > 1:
+      var = var * (n_unaligned / (n_unaligned - 1.))
+    return mu, var

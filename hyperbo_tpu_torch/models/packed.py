@@ -32,6 +32,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from hyperbo_tpu_torch.core import convert
 from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.ops import batch_chol
@@ -118,6 +119,12 @@ def nll_one_task(mean_func, cov_func, params, x, y, mask, count,
   the reference per-task NLL. Takes leading batch dimensions."""
   kmat, delta = _masked_system(mean_func, cov_func, params, x, y, mask,
                                warp_func=warp_func, eps=eps)
+  return dense_nll(kmat, delta, count)
+
+
+def dense_nll(kmat, delta, count) -> torch.Tensor:
+  """NLL of masked systems (..., n, n), (..., n, 1) through the dense
+  factorization (ops/chol.cholesky and its routes)."""
   chol = chol_ops.cholesky(kmat)
   kinvy = chol_ops.cho_solve(chol, delta)
   quad = 0.5 * torch.sum(delta * kinvy, dim=(-2, -1))
@@ -223,6 +230,76 @@ def neg_log_marginal_likelihood_packed(mean_func,
   per_task = torch.where(packed.task_mask, per_task, 0.0)
   num = torch.clamp(packed.task_mask.sum(), min=1)
   return per_task.sum() / num + prior_nll_terms(params, warp_func)
+
+
+# The Gram matrices of one batched evaluation are built this many bytes at
+# a time at most: larger stacks of models go in consecutive chunks.
+_BATCH_GRAM_BYTES = 1 << 30
+
+
+def batched_masked_system(mean_func, cov_func, config, stacked_model, x, y,
+                          mask, warp_func=None, eps: float = 1e-6):
+  """_masked_system of every model of a stack (leaves with a leading axis
+  B) on the same padded tasks: (B, ..., n, n) and (B, ..., n, 1)."""
+  def one(model):
+    return _masked_system(mean_func, cov_func,
+                          defs.GPParams(model=model, config=config), x, y,
+                          mask, warp_func=warp_func, eps=eps)
+
+  return torch.func.vmap(one)(stacked_model)
+
+
+def batched_prior_nll_terms(config, stacked_model, warp_func=None):
+  """prior_nll_terms of every model of a stack: (B,), or 0.0 without
+  config['priors']."""
+  if not config or 'priors' not in config:
+    return 0.0
+  return torch.func.vmap(lambda m: torch.as_tensor(prior_nll_terms(
+      defs.GPParams(model=m, config=config), warp_func)))(stacked_model)
+
+
+def neg_log_marginal_likelihood_packed_batched(
+    mean_func, cov_func, config, stacked_model, packed: PackedDataset,
+    warp_func=None, eps: float = 1e-6) -> torch.Tensor:
+  """neg_log_marginal_likelihood_packed of every model of a stack (leaves
+  with a leading axis B): (B,).
+
+  The B x T systems are built at once and, in K1's regime, factored by
+  ONE launch of the batched kernel on (B T, n, n) (stacks whose Gram
+  matrices exceed _BATCH_GRAM_BYTES go in chunks, one launch a chunk).
+  Each model's value equals the unbatched function's. The fused large-n
+  route has no batched form: there each model goes through it in turn.
+  """
+  shim = defs.GPParams(model={}, config=config)
+  b = convert.stack_size(stacked_model)
+  if (fused_mll.fused_requested(shim) and
+      fused_mll.se_nll_fused_applicable(cov_func, packed.x[0], shim)):
+    return torch.stack([neg_log_marginal_likelihood_packed(
+        mean_func, cov_func,
+        defs.GPParams(model=convert.model_at(stacked_model, r),
+                      config=config),
+        packed, warp_func, eps) for r in range(b)])
+  t, n = packed.x.shape[0], packed.x.shape[1]
+  step = max(1, _BATCH_GRAM_BYTES // max(1, 4 * t * n * n))
+  per_task = []
+  for start in range(0, b, step):
+    part = convert.model_at(stacked_model, slice(start, start + step))
+    kb, delta = batched_masked_system(
+        mean_func, cov_func, config, part, packed.x, packed.y, packed.mask,
+        warp_func=warp_func, eps=eps)
+    rows = kb.shape[0]
+    if _batched_chol_route(shim, packed):
+      quad, ld = batch_chol.nll_terms_batched(
+          kb.reshape(rows * t, n, n).contiguous(),
+          delta.reshape(rows * t, n, 1))
+      per_task.append(0.5 * quad.reshape(rows, t) + ld.reshape(rows, t) +
+                      0.5 * packed.count * _LOG_2PI)
+    else:
+      per_task.append(dense_nll(kb, delta, packed.count))
+  per_task = torch.where(packed.task_mask, torch.cat(per_task), 0.0)
+  num = torch.clamp(packed.task_mask.sum(), min=1)
+  return (per_task.sum(dim=-1) / num +
+          batched_prior_nll_terms(config, stacked_model, warp_func))
 
 
 def subsample_packed(generator: Optional[torch.Generator],

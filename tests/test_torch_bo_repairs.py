@@ -105,13 +105,16 @@ def test_retraining_bo_selects_what_jax_selects():
 def test_ei_gradient_matches_jax_and_bo_keeps_no_graph():
   obs, cands = _data(seed=2)
   jmodel, tmodel = _models(obs, {})
-  # The JAX posterior cache is set up outside the traced function, as in
+  # The JAX posterior cache is set up outside the traced functions, as in
   # the JAX package's BO loop before its L-BFGS-B refinement; the query is
-  # the candidate of largest EI, where EI has a slope to climb.
-  evals = jacfun.ei(model=jmodel, sub_dataset_key='test', x_queries=cands[0])
+  # the candidate of largest EI, where EI has a slope to climb. EI and its
+  # gradient then run jitted, reading that cache.
+  jmodel.setup_predictor('test')
+  evals = jax.jit(lambda: jacfun.ei(model=jmodel, sub_dataset_key='test',
+                                    x_queries=jnp.asarray(cands[0])))()
   q = cands[0][int(jnp.argmax(evals))]
-  want = jax.grad(lambda v: jacfun.ei(
-      model=jmodel, sub_dataset_key='test', x_queries=v[None, :])[0, 0])(
+  want = jax.jit(jax.grad(lambda v: jacfun.ei(
+      model=jmodel, sub_dataset_key='test', x_queries=v[None, :])[0, 0]))(
           jnp.asarray(q))
   tq = torch.tensor(q, requires_grad=True)
   val = tacfun.ei(model=tmodel, sub_dataset_key='test',

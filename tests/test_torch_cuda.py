@@ -30,7 +30,11 @@ bo/ondevice.py) run under torch.cuda.set_sync_debug_mode('error'): no
 read of the device inside a call; the packed runner's loss trace within
 rtol 1e-4 of the CPU's on the same injected draws; the on-device BO's
 selections equal the CPU's, and its q = 1 and retrain_steps = 0 runners
-repeat the plain one bitwise.
+repeat the plain one bitwise. The HGP runners: the fixed-sample one free of
+host syncs, picking as on the CPU and, with S identical samples, as the
+plain runner; the re-sampling one launching K1 once per batched corpus
+evaluation, its chain-batched corpus log prob within rtol 1e-4 of the
+CPU's.
 """
 
 import numpy as np
@@ -649,3 +653,92 @@ def test_ondevice_bo_runners_on_the_card(cuda_device):
     assert all(bool(torch.isfinite(v).all()) for v in r[3].values())
     picks[device if device == 'cpu' else 'cuda'] = plain[2].cpu()
   assert torch.equal(picks['cpu'], picks['cuda'])
+
+
+def _hgp_case(rng):
+  cx = rng.uniform(size=(400, 3)).astype(np.float32)
+  cy = np.sin(3 * cx @ rng.normal(size=(3, 1))).astype(np.float32)
+  model = {'constant': 0., 'lengthscale': np.zeros(3, np.float32),
+           'signal_variance': 0., 'noise_variance': -3.}
+  corpus = {i: defs.SubDataset(
+      rng.uniform(size=(40, 3)).astype(np.float32),
+      rng.normal(size=(40, 1)).astype(np.float32)) for i in range(3)}
+  return cx, cy, model, corpus
+
+
+@pytest.mark.cuda
+def test_hgp_fixed_sample_runner_on_the_card(cuda_device):
+  """The fixed-sample HGP runner reads nothing back inside, picks on the
+  card what it picks on the CPU, and with S identical samples picks as
+  the plain runner."""
+  from hyperbo_tpu_torch.bo import ondevice
+  rng = np.random.default_rng(10)
+  cx, cy, model, _ = _hgp_case(rng)
+  samples = [{k: np.asarray(v, np.float32) + 0.1 * i
+              for k, v in model.items()} for i in range(4)]
+  picks = {}
+  for device in ('cpu', cuda_device):
+    queried = defs.SubDataset(torch.from_numpy(cx).to(device),
+                              torch.from_numpy(cy).to(device))
+    common = (mean.constant, kernel.squared_exponential)
+    stacked = convert.stack_models(samples, device)
+    one = convert.model_to(model, device)
+    same4 = convert.stack_models([model] * 4, device)
+    ctx = _NoHostSync() if device != 'cpu' else torch.no_grad()
+    with ctx:
+      hgp = ondevice.simulated_bayesopt_ondevice_hgp(
+          *common, stacked, {}, DEFAULT_WARP_FUNC, queried, 12,
+          num_train_tasks=3, device=device)
+      same = ondevice.simulated_bayesopt_ondevice_hgp(
+          *common, same4, {}, DEFAULT_WARP_FUNC, queried, 12,
+          num_train_tasks=3, device=device)
+      plain = ondevice.simulated_bayesopt_ondevice(
+          *common, one, {}, DEFAULT_WARP_FUNC, queried, 12,
+          num_train_tasks=3, device=device)
+    assert torch.equal(same[2], plain[2])
+    picks[str(torch.device(device).type)] = hgp[2].cpu()
+  assert torch.equal(picks['cpu'], picks['cuda'])
+
+
+@pytest.mark.cuda
+def test_hgp_resample_runner_launches_k1_per_batched_evaluation(
+    cuda_device):
+  """The corpus log prob of 4 chains in one call on the card within rtol
+  1e-4 of the CPU's; the re-sampling runner launches K1 exactly once per
+  batched corpus evaluation and keeps its samples finite."""
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import slice_sampler
+  rng = np.random.default_rng(11)
+  cx, cy, model, corpus = _hgp_case(rng)
+  flat, unravel = slice_sampler.ravel_model(model)
+  rows = flat + torch.from_numpy(
+      0.1 * rng.normal(size=(4, flat.shape[0])).astype(np.float32))
+  values = []
+  for device in ('cpu', cuda_device):
+    pp, _ = packed_lib.pack_dataset(corpus, device=device)
+    x_buf = torch.from_numpy(cx[:8]).to(device)
+    y_buf = torch.from_numpy(cy[:8]).to(device)
+    before = batch_chol.KERNEL.launches
+    values.append(ondevice._corpus_loss_batched(
+        mean.constant, kernel.squared_exponential, {}, DEFAULT_WARP_FUNC, 8,
+        unravel(rows.to(device)), x_buf, y_buf, 5, pretrain_packed=pp).cpu())
+    if device != 'cpu':
+      assert batch_chol.KERNEL.launches - before == 1
+  np.testing.assert_allclose(values[1].numpy(), values[0].numpy(), rtol=1e-4)
+
+  pp, _ = packed_lib.pack_dataset(corpus, device=cuda_device)
+  queried = defs.SubDataset(torch.from_numpy(cx).to(cuda_device),
+                            torch.from_numpy(cy).to(cuda_device))
+  stats = {}
+  before = batch_chol.KERNEL.launches
+  _, y, sel, samples = ondevice.simulated_bayesopt_ondevice_hgp_resample(
+      mean.constant, kernel.squared_exponential,
+      convert.model_to(model, cuda_device), {}, DEFAULT_WARP_FUNC, queried,
+      6, num_samples=4, num_train_tasks=3, pretrain_packed=pp,
+      resample_every=3, sweeps=1, device=cuda_device, stats=stats)
+  assert batch_chol.KERNEL.launches - before == stats['evaluations'] > 0
+  assert stats['readbacks'] >= 2 * 5
+  assert torch.isfinite(y).all() and sel.shape == (6,)
+  assert all(bool(torch.isfinite(v).all()) for s in samples
+             for v in s.values())

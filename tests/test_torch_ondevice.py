@@ -403,7 +403,9 @@ def test_dispatcher_matches_jax_and_refuses(monkeypatch):
   """run_bayesopt_ondevice sends a GP where the JAX package sends it, with
   the same iteration count, train-task count, initial observations and
   retrain corpus; the plain branch returns the runner's observations. An
-  HGP, mesh= and HYPERBO_BO_SOLVER=chol raise."""
+  HGP of one sample (its point estimate) picks as the plain runner, and
+  with q = 2 raises ValueError as the JAX package does; mesh= and
+  HYPERBO_BO_SOLVER=chol raise."""
   cands, init = _data()
   tasks, _ = _corpus()
   calls = {'jax': [], 'port': []}
@@ -456,9 +458,16 @@ def test_dispatcher_matches_jax_and_refuses(monkeypatch):
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     ton.run_bayesopt_ondevice(tm, 'test', tdefs.SubDataset(*cands), 2,
                               mesh=object())
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    ton.run_bayesopt_ondevice(object.__new__(tgp.HGP), 'test',
-                              tdefs.SubDataset(*cands), 2)
+  hgp = tgp.HGP(dict(tasks, test=init), tmean.constant,
+                tkernel.squared_exponential,
+                tdefs.GPParams(model=convert.model_from_jax(MODEL)), TWARP,
+                device='cpu')
+  (xo, yo), _, _ = ton.run_bayesopt_ondevice(
+      hgp, 'test', tdefs.SubDataset(*cands), ITERS)
+  assert torch.equal(xo, want[0]) and torch.equal(yo, want[1])
+  with pytest.raises(ValueError, match='q-batch'):
+    ton.run_bayesopt_ondevice(hgp, 'test', tdefs.SubDataset(*cands), 2,
+                              q=2)
   monkeypatch.setenv('HYPERBO_BO_SOLVER', 'chol')
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     ton.run_bayesopt_ondevice(tm, 'test', tdefs.SubDataset(*cands), 2)

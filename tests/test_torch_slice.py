@@ -149,12 +149,18 @@ def test_bo_matches_jax(initial):
   selections and posteriors. (The parameters are the initial ones, so that
   this test needs no training run of its own.)"""
   data, (cx, cy), init_np = initial
-  jmodel = _jax_gp(data, jax.tree.map(jnp.asarray, init_np))
-  jmodel.initialize_params(jax.random.PRNGKey(0))
+
+  def jax_bo():
+    """The JAX host loop and its final posterior, traced as one program."""
+    jmodel = _jax_gp(data, jax.tree.map(jnp.asarray, init_np))
+    jmodel.initialize_params(jax.random.PRNGKey(0))
+    jobs = jbo.simulated_bayesopt(
+        jmodel, 'test', jdefs.SubDataset(jnp.asarray(cx), jnp.asarray(cy)),
+        jacfun.ei, BO_ITERS, random_key=jax.random.PRNGKey(3))
+    return (jobs.x,) + tuple(jmodel.predict(jnp.asarray(cx), 'test'))
+
+  jx, mu_j, var_j = jax.jit(jax_bo)()
   tmodel = _torch_gp(data, init_np)
-  jobs = jbo.simulated_bayesopt(jmodel, 'test', jdefs.SubDataset(cx, cy),
-                                jacfun.ei, BO_ITERS,
-                                random_key=jax.random.PRNGKey(3))
   tobs = tbo.simulated_bayesopt(tmodel, 'test', tdefs.SubDataset(cx, cy),
                                 tacfun.ei, BO_ITERS)
 
@@ -163,10 +169,9 @@ def test_bo_matches_jax(initial):
             for row in np.asarray(x)]
 
   assert tobs.x.shape == (BO_ITERS, DIM) and tobs.y.shape == (BO_ITERS, 1)
-  assert picks(tobs.x) == picks(jobs.x)
+  assert picks(tobs.x) == picks(jx)
   # Both caches went through the bucket-padded rank-1 appends.
   assert tmodel.params.cache['test'].num_obs == BO_ITERS - 1
-  mu_j, var_j = jmodel.predict(cx, 'test')
   mu_t, var_t = tmodel.predict(cx, 'test')
   assert tmodel.params.cache['test'].num_obs == BO_ITERS
   assert mu_t.shape == var_t.shape == (len(cx), 1)

@@ -19,7 +19,9 @@ and measures, in one process on one card:
     (make_fit_adam_packed with fast_subsample), the plain on-device BO at
     bench.py's configuration (EI, 10,000 candidates, 100 iterations), its
     q-batch runner (q = 4) and its retrain runner (every 5 iterations, 10
-    steps, 8 tasks x 100 points).
+    steps, 8 tasks x 100 points); and chip_smoke.py's phases 17-18, the
+    HGP runners: fixed samples (S = 8) and re-sampling (8 chains, a sweep
+    every 5 iterations on the 8-task corpus).
 
 The swap to the plain version exists only in this measurement script; the
 library itself never routes a CUDA tensor around the kernel.
@@ -111,7 +113,7 @@ def _timed_ms(fn, count):
 
 
 def _compile_once_paths(model, candidates, dev):
-  """Time, then profile, the packed runner and the three on-device BO
+  """Time, then profile, the packed runner and the five on-device BO
   runners at chip_smoke.py's shapes and depths."""
   from hyperbo_tpu_torch.bo import ondevice
   from hyperbo_tpu_torch.models import packed as packed_lib
@@ -152,6 +154,19 @@ def _compile_once_paths(model, candidates, dev):
           pretrain_packed=pp, retrain_every=chip_smoke.RETRAIN_EVERY,
           retrain_steps=chip_smoke.RETRAIN_STEPS, generator=gen,
           device=dev), iters),
+      'HGP fixed samples': (lambda: ondevice.simulated_bayesopt_ondevice_hgp(
+          mean.constant, kernel.squared_exponential,
+          chip_smoke.hgp_samples(dev), {'learning_rate': 1e-2},
+          DEFAULT_WARP_FUNC, queried, iters,
+          num_train_tasks=chip_smoke.TASKS, generator=gen, device=dev),
+                            iters),
+      'HGP re-sampling': (
+          lambda: ondevice.simulated_bayesopt_ondevice_hgp_resample(
+              *common, iters, num_samples=chip_smoke.HGP_SAMPLES,
+              num_train_tasks=chip_smoke.RETRAIN_TASKS, pretrain_packed=pp,
+              resample_every=chip_smoke.RESAMPLE_EVERY,
+              sweeps=chip_smoke.RESAMPLE_SWEEPS, generator=gen, device=dev),
+          iters),
   }
   for name, (fn, count) in runs.items():
     fn()
