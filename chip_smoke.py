@@ -137,11 +137,37 @@ exits non-zero and the final ok line is never printed:
      samples, 20 iterations) and with config['retrain'] = 1 on phase 15's
      corpus (the re-sampling runner, 5 iterations); HGP.stats() on the
      8-task corpus;
-  20. one JSON line with the kernels' numbers (each with its bound from the
+  20. multi-start Adam (train/adam.fit_adam_packed_multistart) at PD1
+     width: 4 restarts of phase 13's model and packing, 50 steps at batch
+     100, each restart with a batch of its own: K1 once a step over all
+     4 x 23 systems, the best final loss below the start's, a second call
+     under torch.cuda.set_sync_debug_mode('error') and timed beside phase
+     13's single run; one step's per-restart losses on the card against
+     the CPU from the same perturbation and batches (rtol 1e-4);
+  21. GP.train with method 'lbfgs' and 'bfgs' on the 23 tasks subsampled
+     once to 100 points, 20 iterations each on the per-task NLL: the loss
+     falls, the final value on the card matches the CPU's at the same
+     parameters (rtol 1e-4); ms per evaluation;
+  22. GP.train(method='lbfgs') through config['fused_mll'] on phase 6's two
+     tasks, 5 iterations: K2, K3 and K4 once per task per evaluation, then
+     with HYPERBO_BWD_JOINT=1 K2 and K8 (K3 and K4 never); the loss falls;
+  23. the host-loop Adam (train/adam.fit_adam) through GP.train with
+     nll_regeuc(1.) on phase 9's data, 20 steps at batch 100: the loss
+     finite and falling; ms/step;
+  24. the SE-Kumar kernel: packed Adam at PD1 width (20 steps, K1 once a
+     step, the warp moved), and value and gradient at n = 8192 through
+     K2-K4 over the Kumar embedding against the float64 dense route (value
+     rtol 1e-4, max rel 5e-3 per leaf, the warp's a and b included);
+  25. GP.train(get_params_path=...) at PD1 width with a checkpoint every
+     25 of 50 steps into a temporary directory: the hook at 25 and 50, the
+     file's state and leaves; loaded on the CPU, its GP.stats() equals the
+     trained GP's (rtol 1e-5); 50 steps resumed from it;
+  26. one JSON line with the kernels' numbers (each with its bound from the
      bytes and operations of its inputs, and the time of one PyTorch call
      computing the same function where there is one; K1 and K5 also with
-     their device time, device_ms; K1 with its launches on each path,
-     the re-sampling runner's among them), then the ok line.
+     their device time, device_ms; K1, K2-K4 and K8 with their launches on
+     each path: the re-sampling runner's, multi-start Adam's, the fused
+     L-BFGS's and the Kumar paths' among them), then the ok line.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -182,6 +208,13 @@ RETRAIN_TASKS, RETRAIN_EVERY, RETRAIN_STEPS = 8, 5, 10
 HGP_SAMPLES, RESAMPLE_EVERY, RESAMPLE_SWEEPS = 8, 5, 1
 HGP_JITTER = 0.1
 SS_BURNIN, SS_NSAMPLES, SS_BO_ITERS, SS_RESAMPLE_ITERS = 2, 2, 20, 5
+
+# The other trainers, checkpoints and the Kumar kernels (phases 20-25).
+MS_RESTARTS = 4
+QN_ITERS, FUSED_QN_ITERS = 20, 5
+HOST_ADAM_STEPS, KUMAR_STEPS, KUMAR_N = 20, 20, 8192
+CKPT_EVERY, CKPT_STEPS = 25, 50
+STATS_RTOL = 1e-5
 
 # The fused large-n path (phases 5-7).
 FUSED_TASKS = ((8192, 'a'), (5000, 'b'))
@@ -1149,7 +1182,7 @@ def phase_ekl_step_parity(dataset, dev):
   sel_al = torch.from_numpy(rng.permutation(ALIGNED_POINTS)[:BATCH][None])
   losses = []
   for device in ('cpu', dev):
-    loss_fn, (pnll, pekl), _ = gp._build_packed_training(
+    loss_fn, (pnll, pekl), _, _ = gp._build_packed_training(
         model.params.config['objective'], model.dataset, model.params.config,
         mean.linear_mlp, kernel.squared_exponential_mlp, DEFAULT_WARP_FUNC,
         device)
@@ -1869,6 +1902,419 @@ def phase_hyperbo_ss(dataset, candidates, batch_chol, dev, card):
   return launches
 
 
+def _counted(objective):
+  """The objective, counting its calls in .calls (one a value and
+  gradient evaluation in the quasi-Newton trainers)."""
+  def counted(**kwargs):
+    counted.calls += 1
+    return objective(**kwargs)
+
+  counted.calls = 0
+  return counted
+
+
+def _to_cpu(dataset):
+  from hyperbo_tpu_torch.core import defs
+  return {k: defs.SubDataset(v.x.cpu(), v.y.cpu(), v.aligned)
+          for k, v in dataset.items()}
+
+
+def phase_multistart(dataset, batch_chol, dev, card, packed_step_ms):
+  """Phase 20: multi-start Adam (train/adam.fit_adam_packed_multistart)
+  at PD1 width, MS_RESTARTS restarts of phase 13's model and packing, 50
+  steps at batch 100 with a batch of its own a restart: K1 once a step over
+  all R x T systems, the second call free of host syncs and timed; one
+  step's per-restart loss on the card against the CPU, from the same
+  perturbation and batches (rtol 1e-4). Returns K1's launches of one
+  call."""
+  from hyperbo_tpu_torch.core import convert
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import adam
+
+  model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                init_params(STEPS), DEFAULT_WARP_FUNC, device=dev)
+  model.initialize_params(torch.Generator(device=dev).manual_seed(1))
+  model0, config = model.params.model, model.params.config
+  packed, _ = packed_lib.pack_dataset(model.dataset, pad_to_multiple=128,
+                                      device=dev)
+
+  def run(seed):
+    return adam.fit_adam_packed_multistart(
+        mean.linear_mlp, kernel.squared_exponential_mlp, model0, packed,
+        config, warp_func=DEFAULT_WARP_FUNC,
+        generator=torch.Generator(device=dev).manual_seed(seed),
+        num_restarts=MS_RESTARTS)
+
+  sizes = []
+  launch = batch_chol.KERNEL.launch
+
+  def recorded(*args):
+    sizes.append(args[2])
+    return launch(*args)
+
+  batch_chol.KERNEL.launches = 0
+  with mock.patch.object(batch_chol.KERNEL, 'launch', recorded):
+    _, best_loss, finals = run(0)
+  launches = batch_chol.KERNEL.launches
+  start = float(packed_lib.neg_log_marginal_likelihood_packed(
+      mean.linear_mlp, kernel.squared_exponential_mlp,
+      gp.GPParams(model=model0, config=config), packed,
+      warp_func=DEFAULT_WARP_FUNC))
+  finals = finals.cpu().numpy()
+  log(f'multi-start: full-set loss at the start {start:.4f}, restarts\' '
+      f'finals {" ".join(f"{v:.4f}" for v in finals)}, best '
+      f'{float(best_loss):.4f}; K1 launches {launches}, systems a launch '
+      f'{sorted(set(sizes))}')
+  if launches != STEPS or sizes != [MS_RESTARTS * TASKS] * STEPS:
+    raise AssertionError(f'K1 launched {launches} times ({sizes}), want '
+                         f'{STEPS} of {MS_RESTARTS * TASKS} systems')
+  if not (np.isfinite(finals[0]) and float(best_loss) == np.nanmin(
+      np.where(np.isfinite(finals), finals, np.inf)) and
+          float(best_loss) < start):
+    raise AssertionError(f'multi-start finals {finals}, best {best_loss}')
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with no_host_sync():
+    run(1)
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - t0) * 1e3 / STEPS
+  log(f'multi-start Adam (fit_adam_packed_multistart, {MS_RESTARTS} '
+      f'restarts x {TASKS}x{POINTS}x{DIM}, batch {BATCH}): second call '
+      f'{step_ms:.3f} ms/step, no host sync between its first step and its '
+      f'last (phase 13\'s single run: {packed_step_ms:.3f} ms/step) [{card}]')
+
+  # One step's loss of every restart on the card and on the CPU, the
+  # perturbation and the batches injected.
+  rng = np.random.default_rng(8)
+  noise = {k: rng.normal(size=(MS_RESTARTS,) + tuple(v.shape))
+           for k, v in convert.model_to_numpy(model0).items()
+           if not isinstance(v, dict)}
+  sel = torch.from_numpy(np.stack([np.stack(
+      [rng.permutation(POINTS)[:BATCH] for _ in range(TASKS)])
+      for _ in range(MS_RESTARTS)]))
+  losses = []
+  for device in ('cpu', dev):
+    m0 = convert.model_to(model0, device)
+    stacked = convert.stack_models([m0] * MS_RESTARTS, device)
+    for k, v in noise.items():
+      v = torch.tensor(v, dtype=torch.float32, device=device)
+      v[0] = 0.0
+      stacked[k] = stacked[k] + v
+    pk = packed_lib.PackedDataset(*[t.to(device) for t in packed])
+    losses.append(packed_lib.neg_log_marginal_likelihood_packed_batched(
+        mean.linear_mlp, kernel.squared_exponential_mlp, config, stacked,
+        packed_lib.take_rows_stacked(pk, sel.to(device)),
+        warp_func=DEFAULT_WARP_FUNC).cpu().numpy())
+  rel = np.abs(losses[1] - losses[0]) / np.abs(losses[0])
+  log(f'multi-start first-step losses: card {losses[1]}, cpu {losses[0]}, '
+      f'max rel diff {rel.max():.3e}')
+  if not rel.max() <= STEP_LOSS_RTOL:
+    raise AssertionError(f'card/cpu multi-start losses differ by {rel}')
+  return launches, step_ms
+
+
+def phase_quasi_newton(dataset, dev, card):
+  """Phase 21: GP.train with method 'lbfgs' and 'bfgs' at PD1 width: the
+  23 tasks subsampled once to 100 points (sub_sample_dataset_iterator on
+  the card), QN_ITERS iterations of each on the per-task NLL (a dense
+  Cholesky a task an evaluation); the loss falls, and the final value on
+  the card matches the CPU's at the same parameters (rtol 1e-4)."""
+  from hyperbo_tpu_torch.core import convert
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import divergences, gp, kernel, mean
+  from hyperbo_tpu_torch.models import objectives as obj
+
+  base = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+               init_params(QN_ITERS), DEFAULT_WARP_FUNC, device=dev)
+  sub = next(divergences.sub_sample_dataset_iterator(
+      torch.Generator(device=dev).manual_seed(3), base.dataset, BATCH))
+  ms = {}
+  for method in ('lbfgs', 'bfgs'):
+    params = init_params(QN_ITERS)
+    objective = _counted(obj.neg_log_marginal_likelihood)
+    params.config.update(method=method, objective=objective, tol=1e-6)
+    model = gp.GP(sub, mean.linear_mlp, kernel.squared_exponential_mlp,
+                  params, DEFAULT_WARP_FUNC, device=dev)
+    model.initialize_params(torch.Generator(device=dev).manual_seed(1))
+
+    def value(m, data):
+      return float(obj.neg_log_marginal_likelihood(
+          mean.linear_mlp, kernel.squared_exponential_mlp,
+          gp.GPParams(model=m, config=params.config), data,
+          warp_func=DEFAULT_WARP_FUNC))
+
+    first = value(model.params.model, model.dataset)
+    objective.calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.train()
+    torch.cuda.synchronize()
+    ms[method] = (time.perf_counter() - t0) * 1e3 / objective.calls
+    last = value(model.params.model, model.dataset)
+    last_cpu = value(convert.model_to(model.params.model, 'cpu'),
+                     _to_cpu(model.dataset))
+    rel = abs(last - last_cpu) / abs(last_cpu)
+    log(f'{method} at PD1 width ({TASKS} tasks x {BATCH} points): loss '
+        f'{first:.4f} -> {last:.4f} in {objective.calls} evaluations, '
+        f'{ms[method]:.3f} ms per evaluation; final value card vs cpu rel '
+        f'diff {rel:.3e} [{card}]')
+    if not (np.isfinite(last) and last < first):
+      raise AssertionError(f'{method}: loss {first} -> {last}')
+    if not rel <= STEP_LOSS_RTOL:
+      raise AssertionError(f'{method}: card/cpu final value differ by {rel}')
+  return ms
+
+
+def phase_fused_lbfgs(dev, card, kernels):
+  """Phase 22: GP.train(method='lbfgs') through config['fused_mll'] on
+  phase 6's two tasks (8192 and 5000 rows x 8-d), FUSED_QN_ITERS
+  iterations: K2, K3 and K4 once per task per evaluation (K8 never), then
+  again with HYPERBO_BWD_JOINT=1: K2 and K8 once per task per evaluation
+  (K3 and K4 never). Returns each run's launches."""
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.models import objectives as obj
+
+  out = {}
+  for joint in ('0', '1'):
+    objective = _counted(obj.neg_log_marginal_likelihood)
+    model = gp.GP(fused_data(), mean.constant, kernel.squared_exponential,
+                  defs.GPParams(model=fused_model(), config={
+                      'method': 'lbfgs', 'max_training_step': FUSED_QN_ITERS,
+                      'batch_size': 8192, 'objective': objective,
+                      'fused_mll': True}),
+                  DEFAULT_WARP_FUNC, device=dev)
+    model.initialize_params(torch.Generator(device=dev).manual_seed(0))
+    losses = []
+    for k in kernels.values():
+      k.launches = 0
+    with mock.patch.dict(os.environ, {'HYPERBO_BWD_JOINT': joint}):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      model.train(callback=lambda step, model_params, loss: losses.append(
+          float(loss)))
+      torch.cuda.synchronize()
+    evals = objective.calls
+    eval_ms = (time.perf_counter() - t0) * 1e3 / evals
+    launches = {name: k.launches for name, k in kernels.items()}
+    per = evals * len(FUSED_TASKS)
+    check_launches(launches, {'fused_mll': per,
+                              'tri_inv': 0 if joint == '1' else per,
+                              'mll_bwd': 0 if joint == '1' else per,
+                              'mll_bwd_joint': per if joint == '1' else 0})
+    route = 'K2 + K8' if joint == '1' else 'K2-K4'
+    log(f'fused L-BFGS through {route}: loss {" ".join(f"{v:.4f}" for v in losses)}; '
+        f'{evals} evaluations, {eval_ms:.3f} ms each; launches {launches} '
+        f'[{card}]')
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+      raise AssertionError(f'fused L-BFGS losses {losses}')
+    out[joint] = launches
+  return out['0'], out['1']
+
+
+def phase_host_adam(ekl_data, dev, card):
+  """Phase 23: the host-loop Adam (train/adam.fit_adam, per-step host
+  subsamples from sub_sample_dataset_iterator) through GP.train with
+  nll_regeuc(1.), an objective the packed trainer does not serve, on
+  phase 9's data (23 tasks plus the aligned 1024 x 23), HOST_ADAM_STEPS
+  steps at batch 100: the loss finite and falling."""
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+
+  params = init_params(HOST_ADAM_STEPS)
+  params.config['objective'] = 'nll_regeuc1'
+  model = gp.GP(ekl_data, mean.linear_mlp, kernel.squared_exponential_mlp,
+                params, DEFAULT_WARP_FUNC, device=dev)
+  model.initialize_params(torch.Generator(device=dev).manual_seed(0))
+  losses = []
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  model.train(callback=lambda i, m, loss: losses.append(float(loss)))
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - t0) * 1e3 / HOST_ADAM_STEPS
+  log(f'host-loop Adam with nll_regeuc1: loss {losses[0]:.4f} -> '
+      f'{losses[-1]:.4f} over {len(losses)} steps, {step_ms:.3f} ms/step '
+      f'(op by op, the host\'s speed) [{card}]')
+  if not (len(losses) == HOST_ADAM_STEPS and np.isfinite(losses).all() and
+          np.mean(losses[-5:]) < np.mean(losses[:5])):
+    raise AssertionError(f'host-loop Adam losses {losses}')
+  return step_ms
+
+
+def kumar_model(dtype=torch.float32, device='cpu'):
+  """fused_model with Kumaraswamy warp parameters away from the identity."""
+  model = fused_model(dtype, device)
+  opts = dict(dtype=dtype, device=device)
+  model['kumar_params'] = {
+      'a': torch.linspace(-0.4, 0.4, FUSED_DIM, **opts),
+      'b': torch.linspace(0.3, -0.3, FUSED_DIM, **opts)}
+  return model
+
+
+def phase_kumar(dataset, batch_chol, dev, card, kernels):
+  """Phase 24: the SE-Kumar kernel. Packed Adam training at PD1 width
+  (KUMAR_STEPS steps at batch 100, the warp initialized at zero): K1 once
+  a step, the loss falling and the warp moved. Value and gradient at
+  n = 8192 through K2-K4 over the Kumar embedding against the float64
+  dense route (value rtol 1e-4, max rel 5e-3 per leaf, a and b included).
+  Returns K1's launches in training and K2-K4's in the value+grad."""
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import basis, gp, kernel, mean
+  from hyperbo_tpu_torch.models import objectives as obj
+
+  params = defs.GPParams(
+      model={'constant': 0., 'lengthscale': torch.zeros(DIM),
+             'signal_variance': 0., 'noise_variance': -4.},
+      config={'method': 'adam', 'learning_rate': 1e-2,
+              'max_training_step': KUMAR_STEPS, 'batch_size': BATCH,
+              'objective': 'nll', 'checkpoint_every': 1})
+  basis.init_kumar_warp_with_shape(None, params, (0, DIM), device=dev)
+  model = gp.GP(dataset, mean.constant, kernel.squared_exponential_kumar,
+                params, DEFAULT_WARP_FUNC, device=dev)
+  model.initialize_params(torch.Generator(device=dev).manual_seed(0))
+  losses, marks = [], {}
+
+  def on_step(step, _, loss):
+    losses.append(loss)
+    if step in (1, KUMAR_STEPS):
+      torch.cuda.synchronize()
+      marks[step] = time.perf_counter()
+
+  batch_chol.KERNEL.launches = 0
+  model.train(callback=on_step)
+  step_ms = (marks[KUMAR_STEPS] - marks[1]) * 1e3 / (KUMAR_STEPS - 1)
+  train_launches = batch_chol.KERNEL.launches
+  trace = torch.stack(losses).cpu().numpy()
+  warp = {k: v.cpu().numpy() for k, v in
+          model.params.model['kumar_params'].items()}
+  log(f'SE-Kumar packed training: loss {trace[0]:.4f} -> {trace[-1]:.4f} '
+      f'over {len(trace)} steps, {step_ms:.3f} ms/step (as phase 4 times '
+      f'it); K1 launches {train_launches}; warp a '
+      f'{np.round(warp["a"], 4)}, b {np.round(warp["b"], 4)} [{card}]')
+  if not (len(trace) == KUMAR_STEPS and np.isfinite(trace).all() and
+          trace[-5:].mean() < trace[:5].mean()):
+    raise AssertionError(f'SE-Kumar loss trace {trace}')
+  if train_launches != KUMAR_STEPS:
+    raise AssertionError(f'K1 launched {train_launches} times in '
+                         f'{KUMAR_STEPS} SE-Kumar steps')
+  if not all(np.abs(v).max() > 0 for v in warp.values()):
+    raise AssertionError('the Kumar warp did not move')
+
+  rng = np.random.default_rng(9)
+  x = rng.uniform(size=(KUMAR_N, FUSED_DIM))
+  y = rng.normal(size=(KUMAR_N, 1))
+  if not (x.min() > 0 and x.max() < 1):
+    raise AssertionError('Kumar inputs outside (0, 1)')
+
+  def value_and_grad(dtype, fused):
+    m = kumar_model(dtype, dev)
+    leaves = [m['constant'], m['lengthscale'], m['signal_variance'],
+              m['noise_variance'], m['kumar_params']['a'],
+              m['kumar_params']['b']]
+    for v in leaves:
+      v.requires_grad_(True)
+    data = {'t': defs.SubDataset(torch.tensor(x, dtype=dtype, device=dev),
+                                 torch.tensor(y, dtype=dtype, device=dev))}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    val = obj.neg_log_marginal_likelihood(
+        mean.constant, kernel.squared_exponential_kumar,
+        defs.GPParams(model=m, config={'fused_mll': fused}), data,
+        warp_func=DEFAULT_WARP_FUNC)
+    grads = torch.autograd.grad(val, leaves)
+    torch.cuda.synchronize()
+    return (float(val.detach()), [g.double().cpu() for g in grads],
+            (time.perf_counter() - t0) * 1e3)
+
+  value_and_grad(torch.float32, True)  # warm-up
+  for k in kernels.values():
+    k.launches = 0
+  val, grads, ms = value_and_grad(torch.float32, True)
+  vg_launches = {name: k.launches for name, k in kernels.items()}
+  val64, grads64, _ = value_and_grad(torch.float64, False)
+  rel = abs(val - val64) / abs(val64)
+  leaf_rel = [_rel(a, b) for a, b in zip(grads, grads64)]
+  log(f'n={KUMAR_N} SE-Kumar value+grad through K2-K4: {ms:.3f} ms; value rel '
+      f'err {rel:.3e}; gradient max rel per leaf (constant, lengthscale, '
+      f'sv, noise, kumar a, kumar b) {" ".join(f"{v:.3e}" for v in leaf_rel)}'
+      f'; launches {vg_launches} [{card}]')
+  check_launches(vg_launches, {'fused_mll': 1, 'tri_inv': 1, 'mll_bwd': 1,
+                               'mll_bwd_joint': 0})
+  if not (rel <= VALUE_RTOL and max(leaf_rel) <= GRAD_MAX_REL):
+    raise AssertionError(f'SE-Kumar n=8192 parity: value {rel}, grads '
+                         f'{leaf_rel}')
+  return train_launches, vg_launches
+
+
+def phase_checkpoint(dataset, batch_chol, dev, card):
+  """Phase 25: GP.train(get_params_path=...) at PD1 width into a
+  temporary directory, CKPT_EVERY steps a checkpoint over CKPT_STEPS: the
+  hook at steps 25 and 50, the file's state (50, final loss) and its
+  leaves the trained ones; loaded on the CPU, its GP.stats() on the card
+  equals the trained GP's (rtol 1e-5); then CKPT_STEPS more steps resumed
+  from it, finite. Returns K1's launches in the checkpointed run."""
+  import tempfile
+  from hyperbo_tpu_torch.core import convert, params_io
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+
+  params = init_params(CKPT_STEPS)
+  params.config['checkpoint_every'] = CKPT_EVERY
+  model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                params, DEFAULT_WARP_FUNC, device=dev)
+  model.initialize_params(torch.Generator(device=dev).manual_seed(2))
+  steps = []
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, 'pd1', 'ckpt.pkl')
+    batch_chol.KERNEL.launches = 0
+    model.train(get_params_path=lambda x=0: path,
+                callback=lambda s, m, loss: steps.append(s))
+    launches = batch_chol.KERNEL.launches
+    loaded, (step, loss) = params_io.load_params(path, include_state=True,
+                                                 device='cpu')
+  trained = convert.model_to_numpy(model.params.model)
+  same = all(np.array_equal(a, b) for a, b in zip(
+      _leaves(trained), _leaves(convert.model_to_numpy(loaded.model))))
+  log(f'checkpoint: hook at steps {steps}, saved state step {step}, loss '
+      f'{float(loss):.4f}; loaded leaves on the CPU equal the trained: '
+      f'{same}; K1 launches {launches}')
+  if steps != [CKPT_EVERY, CKPT_STEPS] or step != CKPT_STEPS or not same:
+    raise AssertionError(f'checkpoint steps {steps}, state {step}, same '
+                         f'{same}')
+  if launches != CKPT_STEPS:
+    raise AssertionError(f'K1 launched {launches} times in {CKPT_STEPS}')
+  want = _stats_values(model)
+  resumed = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                  gp.GPParams(model=loaded.model,
+                              config=init_params(CKPT_STEPS).config),
+                  DEFAULT_WARP_FUNC, device=dev)
+  got = _stats_values(resumed)
+  rel = {k: abs(got[k] - v) / max(abs(v), 1e-30) for k, v in want.items()}
+  log(f'checkpoint GP.stats(): trained {want}, loaded {got} [{card}]')
+  if not all(v <= STATS_RTOL for v in rel.values()):
+    raise AssertionError(f'loaded stats differ: {rel}')
+  resumed.initialize_params(torch.Generator(device=dev).manual_seed(3))
+  losses = []
+  resumed.params.config['checkpoint_every'] = 1
+  resumed.train(callback=lambda s, m, loss: losses.append(loss))
+  trace = torch.stack(losses).cpu().numpy()
+  log(f'resumed {len(trace)} steps from the checkpoint: loss '
+      f'{trace[0]:.4f} -> {trace[-1]:.4f}')
+  if not (len(trace) == CKPT_STEPS and np.isfinite(trace).all()):
+    raise AssertionError(f'resumed loss trace {trace}')
+  return launches
+
+
+def _leaves(tree):
+  if isinstance(tree, dict):
+    return [x for k in sorted(tree) for x in _leaves(tree[k])]
+  return [tree]
+
+
 def _timed(fn, times):
   """fn, recording its wall time (synchronized) under times['train']."""
   def wrapper(*args, **kwargs):
@@ -1914,7 +2360,8 @@ def main():
   joint_launches = phase_joint_path(dev, card, path_kernels, trace_k3k4)
   gram_worst, gram_launches, gram_times = phase_gram(dev, dataset,
                                                      candidates)
-  packed_launches, _ = phase_packed_runner(dataset, batch_chol, dev, card)
+  packed_launches, packed_step_ms = phase_packed_runner(dataset, batch_chol,
+                                                       dev, card)
   sel_plain, _, _ = phase_ondevice_bo(candidates, dev, card)
   retrain_launches, _ = phase_bo_variants(candidates, sel_plain, batch_chol,
                                           dev, card)
@@ -1923,6 +2370,15 @@ def main():
   resample_launches, _, _, _ = phase_hgp_resample(candidates, sel_plain,
                                                   batch_chol, dev, card)
   ss_launches = phase_hyperbo_ss(dataset, candidates, batch_chol, dev, card)
+  ms_launches, _ = phase_multistart(dataset, batch_chol, dev, card,
+                                    packed_step_ms)
+  phase_quasi_newton(dataset, dev, card)
+  lbfgs_launches, lbfgs_joint_launches = phase_fused_lbfgs(dev, card,
+                                                           path_kernels)
+  phase_host_adam(ekl_data, dev, card)
+  kumar_launches, kumar_vg_launches = phase_kumar(dataset, batch_chol, dev,
+                                                  card, path_kernels)
+  ckpt_launches = phase_checkpoint(dataset, batch_chol, dev, card)
 
   # Work of each kernel at the shapes timed above: minimal float32
   # operations, and bytes of its inputs read and outputs written once.
@@ -1970,13 +2426,19 @@ def main():
       'launches': launches,
       # K1's launches on the other paths: one call of the packed runner
       # (phase 13), the retrain runner's run (phase 15), the HGP
-      # re-sampling runner's run (phase 18) and the dispatcher's
-      # re-sampling run on the hyperbo_ss HGP (phase 19).
+      # re-sampling runner's run (phase 18), the dispatcher's
+      # re-sampling run on the hyperbo_ss HGP (phase 19), one call of
+      # multi-start Adam (phase 20: a launch a step over all restarts'
+      # systems), the SE-Kumar training (phase 24) and the checkpointed
+      # training (phase 25).
       'launches_by_path': {'run_bayesopt_pretraining': launches,
                            'make_fit_adam_packed': packed_launches,
                            'ondevice_retrain': retrain_launches,
                            'ondevice_hgp_resample': resample_launches,
-                           'hyperbo_ss_resample_dispatch': ss_launches},
+                           'hyperbo_ss_resample_dispatch': ss_launches,
+                           'multistart_adam': ms_launches,
+                           'kumar_packed_adam': kumar_launches,
+                           'checkpointed_adam': ckpt_launches},
       'max_abs_err': err,
       'ms': k1_times['kernel'],
       'device_ms': measured(k1_times['device']),
@@ -1993,6 +2455,11 @@ def main():
         'source': f'hyperbo_tpu_torch/csrc/{k.source}',
         'replaces': replaces[name],
         'launches': fused_launches[name],
+        # Phase 22's L-BFGS through the fused route and phase 24's n = 8192
+        # SE-Kumar value and gradient.
+        'launches_by_path': {'fused_adam': fused_launches[name],
+                             'fused_lbfgs': lbfgs_launches[name],
+                             'kumar_value_grad': kumar_vg_launches[name]},
         'max_abs_err': worst[name],
         'ms': times[name]['kernel'],
         'plain_ms': times[name]['plain'],
@@ -2018,6 +2485,9 @@ def main():
       'source': 'hyperbo_tpu_torch/csrc/bwd_joint.cu',
       'replaces': 'hyperbo_tpu/ops/pallas_bwd_joint.py:272',
       'launches': joint_launches['mll_bwd_joint'],
+      'launches_by_path': {
+          'fused_adam_joint': joint_launches['mll_bwd_joint'],
+          'fused_lbfgs_joint': lbfgs_joint_launches['mll_bwd_joint']},
       'max_abs_err': joint_worst,
       'ms': joint_times['kernel'],
       'plain_ms': joint_times['plain'],

@@ -1,9 +1,9 @@
 """Neural basis functions (port of hyperbo_tpu/models/basis.py).
 
 The tanh-Dense MLP as a functional apply over the Flax parameter layout,
-{'Dense_i': {'kernel': (in, out), 'bias': (out,)}}, so that parameters
-map name for name between the two packages. The Kumaraswamy warp waits
-(ROADMAP Queue A).
+{'Dense_i': {'kernel': (in, out), 'bias': (out,)}}, and the Kumaraswamy
+CDF warp over its layout {'a': (d,), 'b': (d,)}, so that parameters map
+name for name between the two packages.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ import math
 from typing import Dict, Sequence
 
 import torch
+
+from hyperbo_tpu_torch.core.warp import squareplus_warp
 
 # Flax's lecun_normal draws from a normal truncated to [-2, 2] standard
 # deviations, rescaled by this factor (the truncated distribution's std)
@@ -49,3 +51,26 @@ def init_mlp_with_shape(generator: torch.Generator, params,
   params.model['mlp_params'] = {
       f'Dense_{i}': dense_init(generator, widths[i], widths[i + 1], device)
       for i in range(len(widths) - 1)}
+
+
+def kumar_warp_apply(kumar_params: Dict[str, torch.Tensor],
+                     x: torch.Tensor) -> torch.Tensor:
+  """Kumaraswamy CDF warp 1 - (1 - x^a)^b of each input dimension, with a
+  and b stored unconstrained and squareplus-warped to positive values.
+  Inputs are assumed to lie in [0, 1] (at x = 0 the gradient in x is
+  infinite for a < 1)."""
+  a = squareplus_warp(kumar_params['a'])
+  b = squareplus_warp(kumar_params['b'])
+  return 1 - (1 - x**a)**b
+
+
+def init_kumar_warp_with_shape(generator, params, input_shape: Sequence[int],
+                               device='cpu'):
+  """Initialize params.model['kumar_params']: zero a and b of the input
+  width input_shape[-1] (Flax's zeros initializer; the generator is not
+  drawn from, as the JAX package's key is not)."""
+  del generator
+  d = int(input_shape[-1])
+  params.model['kumar_params'] = {
+      'a': torch.zeros((d,), dtype=torch.float32, device=device),
+      'b': torch.zeros((d,), dtype=torch.float32, device=device)}

@@ -4,15 +4,55 @@ hyperbo_tpu/models/divergences.py).
 The partial KL, the full KL with SVD-square-root whitening of a possibly
 rank-deficient sample covariance, and the weighted Euclidean distance of
 two MVNs. Factorizations go through ops/chol.cholesky (and so take its
-opt-in routes). `sub_sample_dataset_iterator` serves only the host-loop
-trainer, which is not ported (ROADMAP Queue A).
+opt-in routes). `sub_sample_dataset_iterator` draws the host-loop
+trainer's batches; its row order is drawn by `draw_permutation`, which a
+test can replace by the JAX stream's.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.ops import linalg
+
+SubDataset = defs.SubDataset
+
+
+def draw_permutation(generator: Optional[torch.Generator], n: int,
+                     device) -> torch.Tensor:
+  """A uniform random permutation of range(n), int64 on `device` (drawn
+  on the generator's device)."""
+  gen_device = generator.device if generator is not None else device
+  return torch.randperm(n, generator=generator,
+                        device=gen_device).to(device)
+
+
+def sub_sample_dataset_iterator(generator: Optional[torch.Generator],
+                                dataset, batch_size: int):
+  """Yields datasets whose sub-datasets have at most batch_size rows.
+
+  A sub-dataset of batch_size rows or more takes the first batch_size
+  rows of a fresh permutation (one draw a sub-dataset a batch, in dataset
+  order); a smaller one is kept whole. A string `aligned` tag is replaced
+  by the sub-dataset's enumeration index, as in the JAX package.
+  """
+  while True:
+    sub_sampled = {}
+    for i, (sub_key, sub) in enumerate(dataset.items()):
+      if sub.x.shape[0] >= batch_size:
+        indices = draw_permutation(generator, sub.x.shape[0],
+                                   sub.x.device)[:batch_size]
+        new_sub = SubDataset(x=sub.x[indices, :], y=sub.y[indices, :],
+                             aligned=sub.aligned)
+      else:
+        new_sub = sub
+      if isinstance(new_sub.aligned, str):
+        new_sub = SubDataset(x=new_sub.x, y=new_sub.y, aligned=i)
+      sub_sampled[sub_key] = new_sub
+    yield sub_sampled
 
 
 def partial_kl_mvn(mu0, cov0, mu1, cov1):

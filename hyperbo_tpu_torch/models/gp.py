@@ -1,16 +1,22 @@
 """(Multi-task) Gaussian process model: training, evaluation and
 prediction (port of hyperbo_tpu/models/gp.py).
 
-Ported: `infer_parameters` with method 'adam' on the packed route (NLL,
-EKL, and NLL + c EKL objectives) and method 'slice_sample' (the host or
-the device sampler of train/slice_sampler), `sample_from_gp`, the
-functional `predict`, the `GP` class (initialize_params, train, the model
-evaluation `stats` with its SVD NLL and EKL/EUC divergences,
-setup_predictor with the bucket-padded incremental Cholesky cache,
-update_sub_dataset, predict) and the `HGP` class, which averages over the
-posterior samples (predict_stacked: every sample's posterior with one
-batched factorization). The L-BFGS/BFGS trainers, the host-loop Adam and
-the mesh routes raise where a caller could reach them (ROADMAP Queue A).
+`infer_parameters` trains with every method of the JAX package: 'adam'
+on the packed route (NLL, EKL and NLL + c EKL objectives; with
+config['num_restarts'] > 1 and the plain NLL, multi-start Adam), or
+through the host loop `fit_adam` for whatever the packed route does not
+serve (other objectives such as euc and nll_regeuc*, multi-output NLL
+data, config['pack_tasks'] False); 'lbfgs' and 'bfgs' (train/optimizers)
+on the per-task objective; 'slice_sample' (the host or the device sampler
+of train/slice_sampler). `get_params_path` checkpoints the parameters
+(core/params_io) at the JAX package's steps. Also ported:
+`sample_from_gp` (Cholesky, eigh or SVD factor), the functional
+`predict`, the `GP` class (initialize_params, train, the model evaluation
+`stats` with its SVD NLL and EKL/EUC divergences, setup_predictor with
+the bucket-padded incremental Cholesky cache, update_sub_dataset,
+predict) and the `HGP` class, which averages over the posterior samples
+(predict_stacked: every sample's posterior with one batched
+factorization). The mesh routes raise (ROADMAP Queue A).
 
 Every GP lives on one device (`device=`, the CUDA card unless the caller
 asks for the CPU); its data, parameters and random generator are kept
@@ -28,6 +34,7 @@ import torch
 
 from hyperbo_tpu_torch.core import convert
 from hyperbo_tpu_torch.core import defs
+from hyperbo_tpu_torch.core import params_io
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.models import basis as bf
 from hyperbo_tpu_torch.models import divergences
@@ -36,6 +43,7 @@ from hyperbo_tpu_torch.models import packed as packed_lib
 from hyperbo_tpu_torch.ops import chol as chol_ops
 from hyperbo_tpu_torch.ops import linalg
 from hyperbo_tpu_torch.train import adam as adam_lib
+from hyperbo_tpu_torch.train import optimizers as qn
 from hyperbo_tpu_torch.train import slice_sampler as slice_lib
 
 GPCache = defs.GPCache
@@ -59,21 +67,20 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 def _build_packed_training(objective, dataset, config, mean_func,
                            cov_func, warp_func, device):
-  """(loss_fn, data, subsample_fn) of the packed trainer.
+  """(loss_fn, data, subsample_fn, is_pure_nll) of the packed trainer, or
+  None where the JAX package sends the objective to its host loop.
 
   The objectives tagged with `_packed_spec` are served: the plain NLL, the
   plain partial-KL EKL and NLL + c EKL. `data` is the pair (NLL pack, EKL
-  pack), either None when its half is not needed. What the JAX package
-  sends to its host-loop trainer instead (other objectives, multi-output
-  NLL data, an EKL objective without aligned data, pack_tasks False)
-  raises.
+  pack), either None when its half is not needed. Other objectives,
+  multi-output NLL data, an EKL objective without aligned data and
+  config['pack_tasks'] False give None.
   """
   if not config.get('pack_tasks', True):
-    raise _not_ported("config['pack_tasks'] = False (the host-loop trainer)")
+    return None
   spec = getattr(objective, '_packed_spec', None)
   if spec is None:
-    raise _not_ported(f'training objective {objective!r} (the host-loop '
-                      'trainer)')
+    return None
   kind, weight = spec
   need_nll = kind in ('nll', 'nll_regkl')
   need_kl = kind in ('kl', 'nll_regkl')
@@ -82,12 +89,12 @@ def _build_packed_training(objective, dataset, config, mean_func,
   kl_subs = [s for s in dataset.values()
              if s.aligned is not None and s.x.shape[0] > 0]
   if need_nll and (not nll_subs or any(s.y.shape[1] != 1 for s in nll_subs)):
-    raise _not_ported('training on multi-output or empty sub-datasets')
+    return None
   if need_kl and not kl_subs:
     # The divergence over no aligned sub-dataset is 0: the combined
     # objective reduces to the NLL.
     if kind == 'kl':
-      raise _not_ported('the EKL objective without aligned sub-datasets')
+      return None
     need_kl = False
 
   batch_size = int(config.get('batch_size', 1 << 30))
@@ -119,7 +126,7 @@ def _build_packed_training(objective, dataset, config, mean_func,
       bk = packed_lib.subsample_aligned_packed(generator, bk, batch_size)
     return bn, bk
 
-  return loss_fn, (pnll, pekl), subsample_fn
+  return loss_fn, (pnll, pekl), subsample_fn, kind == 'nll'
 
 
 def infer_parameters(mean_func,
@@ -132,46 +139,124 @@ def infer_parameters(mean_func,
                      get_params_path=None,
                      callback=None,
                      device: Union[str, torch.device] = 'cuda') -> GPParams:
-  """Fit GP (hyper)parameters to a multi-task dataset on `device`: Adam
-  on the packed route, or (method 'slice_sample') posterior samples.
-  Returns init_params with the trained model (kept only if the final loss
-  is finite) or the samples (params.samples, params.model the last one),
-  and an emptied cache."""
+  """Fit GP (hyper)parameters to a multi-task dataset on `device`.
+
+  config['method']: 'adam' (the packed route, multi-start with
+  config['num_restarts'] > 1 and the plain NLL, else the host loop),
+  'lbfgs' (on one subsample of batch_size rows a sub-dataset), 'bfgs' or
+  'slice_sample'. Returns init_params with the trained model (Adam keeps
+  it only where the final loss is finite) or the samples (params.samples,
+  params.model the last one), and an emptied cache.
+
+  `get_params_path()` names the checkpoint file: Adam saves the params
+  and (step, loss) after every config['checkpoint_every'] steps and at
+  the end, L-BFGS and the host-loop Adam at the end (core/params_io,
+  the JAX package's pickle). With config['return_state'], the packed
+  Adam run's optimizer state is kept in config['opt_state'], from which
+  the next run resumes.
+  """
+  if not get_params_path:
+    get_params_path = lambda x=0: None
   if not dataset:
     logging.info('No dataset present to train GP.')
     return init_params
-  if get_params_path is not None:
-    raise _not_ported('parameter checkpointing (get_params_path)')
   params = init_params
   config = params.config
   method = config['method']
-  if method not in ('adam', 'slice_sample'):
-    raise _not_ported(f"training method {method!r}")
+  if method not in ('adam', 'lbfgs', 'bfgs', 'slice_sample'):
+    raise ValueError(f'Optimization method {method} is not supported.')
   device = resolve_device(device)
-  if method == 'slice_sample':
+
+  if method == 'lbfgs':
+    # Subsample once so very large sub-datasets fit one factorization.
+    dataset = next(divergences.sub_sample_dataset_iterator(
+        generator, dataset, config['batch_size']))
+
+  max_training_step = int(config['max_training_step'])
+  if max_training_step <= 0 and method != 'slice_sample':
+    return init_params
+  model = convert.model_to(params.model, device)
+
+  if method == 'adam':
+    for route in ('distributed_mesh', 'task_mesh'):
+      if config.get(route) is not None:
+        raise _not_ported(f"config['{route}']")
+    save_every = config.get('checkpoint_every', 0)
+    periodic = callback is not None or bool(
+        save_every and get_params_path() is not None)
+
+    def chunk_hook(step, model, loss):
+      # Snapshot the live parameters so that a crashed pre-training can
+      # resume from the last checkpoint.
+      params.model = model
+      params_io.log_params_loss(
+          step=step, params=params, loss=loss, warp_func=warp_func,
+          params_save_file=get_params_path())
+      if callback is not None:
+        callback(step, model, loss)
+
+    hook = chunk_hook if periodic else None
+    packed_build = _build_packed_training(
+        objective, dataset, config, mean_func, cov_func, warp_func, device)
+    if packed_build is not None:
+      loss_fn, data, subsample_fn, pure_nll = packed_build
+      num_restarts = int(config.get('num_restarts', 1))
+      if num_restarts > 1 and pure_nll:
+        model, final_loss, _ = adam_lib.fit_adam_packed_multistart(
+            mean_func, cov_func, model, data[0], config,
+            warp_func=warp_func, generator=generator,
+            num_restarts=num_restarts,
+            perturb_scale=config.get('restart_perturb_scale', 1.0),
+            callback=hook)
+      else:
+        out = adam_lib.fit_adam_scan(loss_fn, model, data, subsample_fn,
+                                     config, generator=generator,
+                                     callback=hook)
+        model, final_loss = out[0], out[1][-1]
+        if config.get('return_state'):
+          config['opt_state'] = out[2]
+      if bool(torch.isfinite(final_loss)):
+        params.model = model
+    else:
+      def loss_func(model_params, batch):
+        return objective(
+            mean_func=mean_func, cov_func=cov_func,
+            params=GPParams(model=model_params, config=config),
+            dataset=batch, warp_func=warp_func)
+
+      dataset_iter = divergences.sub_sample_dataset_iterator(
+          generator, dataset, config['batch_size'])
+      params.model, final_loss = adam_lib.fit_adam(
+          loss_func, model, dataset_iter,
+          learning_rate=config['learning_rate'],
+          max_training_step=max_training_step, callback=callback)
+    params_io.log_params_loss(
+        step=max_training_step, params=params, loss=final_loss,
+        warp_func=warp_func, params_save_file=get_params_path())
+  elif method in ('lbfgs', 'bfgs'):
+    def loss_func(model_params):
+      return objective(
+          mean_func=mean_func, cov_func=cov_func,
+          params=GPParams(model=model_params, config=config),
+          dataset=dataset, warp_func=warp_func)
+
+    if method == 'bfgs':
+      params.model, _ = qn.bfgs(loss_func, model, tol=config['tol'],
+                                max_training_step=max_training_step)
+    else:
+      current_loss, params.model, _ = qn.lbfgs(
+          loss_func, model, steps=max_training_step,
+          alpha=config.get('alpha', 1.0), callback=callback)
+      params_io.log_params_loss(
+          step=max_training_step, params=params, loss=current_loss,
+          warp_func=warp_func, params_save_file=get_params_path())
+  else:
     # Sampling runs whatever max_training_step is, as in the JAX package.
     params.samples = _slice_sample(objective, params, dataset, mean_func,
                                    cov_func, warp_func, generator, callback,
                                    device)
     if params.samples:
       params.model = params.samples[-1]
-    params.cache = {}
-    return params
-  for route in ('distributed_mesh', 'task_mesh'):
-    if config.get(route) is not None:
-      raise _not_ported(f"config['{route}']")
-  if int(config.get('num_restarts', 1)) > 1:
-    raise _not_ported("config['num_restarts'] > 1")
-  if int(config['max_training_step']) <= 0:
-    return init_params
-
-  loss_fn, data, subsample_fn = _build_packed_training(
-      objective, dataset, config, mean_func, cov_func, warp_func, device)
-  model, losses = adam_lib.fit_adam_scan(
-      loss_fn, convert.model_to(params.model, device), data, subsample_fn,
-      config, generator=generator, callback=callback)
-  if bool(torch.isfinite(losses[-1])):
-    params.model = model
   params.cache = {}
   return params
 
@@ -241,20 +326,41 @@ def sample_from_gp(generator: Optional[torch.Generator],
                    num_samples=1,
                    method='cholesky',
                    eps=1e-6):
-  """Draw function evaluations on x (n x d) from the GP: n x num_samples."""
-  if method != 'cholesky':
-    raise _not_ported(f'sample_from_gp(method={method!r})')
+  """Draw function evaluations on x (n x d) from the GP: n x num_samples.
+
+  `method` picks the factor F with F F^T = cov, as in
+  jax.random.multivariate_normal: 'cholesky' (L), 'eigh' (V sqrt(w)) or
+  'svd' (U sqrt(s)); the draws are mean + F z with z standard normal
+  (_draw_normal).
+  """
+  if method not in ('cholesky', 'eigh', 'svd'):
+    raise ValueError("method must be one of {'svd', 'eigh', 'cholesky'}, "
+                     f'got {method!r}')
   mean = mean_func(params, x, warp_func=warp_func)
   noise_variance, = retrieve_params(
       params, ['noise_variance'], warp_func=warp_func)
   cov = cov_func(params, x, warp_func=warp_func)
   cov = cov + torch.eye(x.shape[0], dtype=cov.dtype, device=cov.device) * (
       noise_variance + eps)
-  chol = chol_ops.cholesky(cov)
-  z = torch.randn((x.shape[0], num_samples), generator=generator,
-                  device=generator.device if generator is not None
-                  else x.device).to(x.device)
-  return mean.reshape(-1, 1) + torch.matmul(chol, z)
+  if method == 'cholesky':
+    factor = chol_ops.cholesky(cov)
+  elif method == 'eigh':
+    w, v = torch.linalg.eigh(cov)
+    factor = v * torch.sqrt(w)[None, :]
+  else:
+    u, s, _ = torch.linalg.svd(cov)
+    factor = u * torch.sqrt(s)[None, :]
+  z = _draw_normal(generator, (x.shape[0], num_samples), x.device)
+  return mean.reshape(-1, 1) + torch.matmul(factor, z)
+
+
+def _draw_normal(generator: Optional[torch.Generator], shape,
+                 device) -> torch.Tensor:
+  """Standard normal draws of `shape` on `device` (drawn on the
+  generator's device)."""
+  return torch.randn(shape, generator=generator,
+                     device=generator.device if generator is not None
+                     else device).to(device)
 
 
 def predict(mean_func,

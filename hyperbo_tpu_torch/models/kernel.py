@@ -6,11 +6,14 @@ Every kernel is a matrix-valued function
 
 with the JAX package's parameterizations and its `diag=True` path (honored
 only when vx2 is None). Inputs may carry leading batch dimensions. The
-Kumaraswamy-warped kernels wait (ROADMAP Queue A).
+`*_mlp` and `*_kumar` kernels apply the MLP or the Kumaraswamy warp
+(models/basis) to the inputs first; `covariance_matrix` lifts a user's
+scalar kernel to this API.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -18,6 +21,26 @@ import torch
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.models import basis as bf
 from hyperbo_tpu_torch.ops import gram
+
+
+def covariance_matrix(kernel_scalar):
+  """Lift a scalar kernel k(params, x1, x2, warp_func=None) to the matrix
+  API f(params, vx1, vx2=None, warp_func=None, diag=False) -> n1 x n2
+  (diag, (n1,), honored only when vx2 is None), by torch.func.vmap over
+  the rows. For user-defined kernels; the built-ins below compute their
+  Gram matrices directly."""
+
+  @functools.wraps(kernel_scalar)
+  def matrix_map(params, vx1, vx2=None, warp_func=None, diag=False):
+    cov = functools.partial(kernel_scalar, params, warp_func=warp_func)
+    if vx2 is None:
+      if diag:
+        return torch.func.vmap(lambda x: cov(x, x))(vx1)
+      vx2 = vx1
+    return torch.func.vmap(
+        lambda a: torch.func.vmap(lambda b: cov(a, b))(vx2))(vx1)
+
+  return matrix_map
 
 
 def _scaled_sqdist(vx1, vx2, lengthscale):
@@ -104,3 +127,24 @@ dot_product_mlp = with_mlp_bases(dot_product)
 squared_exponential_mlp = with_mlp_bases(squared_exponential)
 matern32_mlp = with_mlp_bases(matern32)
 matern52_mlp = with_mlp_bases(matern52)
+
+
+def with_kumar_bases(kernel):
+  """Wrapper applying the Kumaraswamy CDF warp to inputs before the
+  kernel."""
+
+  def kernel_kumar(params, vx1, vx2=None, warp_func=None, diag=False):
+    kumar_params, = retrieve_params(params, ['kumar_params'], warp_func)
+    vx1 = bf.kumar_warp_apply(kumar_params, vx1)
+    if vx2 is not None:
+      vx2 = bf.kumar_warp_apply(kumar_params, vx2)
+    return kernel(params, vx1, vx2, warp_func=warp_func, diag=diag)
+
+  kernel_kumar.__name__ = kernel.__name__ + '_kumar'
+  return kernel_kumar
+
+
+dot_product_kumar = with_kumar_bases(dot_product)
+squared_exponential_kumar = with_kumar_bases(squared_exponential)
+matern32_kumar = with_kumar_bases(matern32)
+matern52_kumar = with_kumar_bases(matern52)

@@ -240,13 +240,17 @@ _BATCH_GRAM_BYTES = 1 << 30
 def batched_masked_system(mean_func, cov_func, config, stacked_model, x, y,
                           mask, warp_func=None, eps: float = 1e-6):
   """_masked_system of every model of a stack (leaves with a leading axis
-  B) on the same padded tasks: (B, ..., n, n) and (B, ..., n, 1)."""
-  def one(model):
+  B): (B, ..., n, n) and (B, ..., n, 1). The padded tasks are the same
+  for every model (x (T, n, d)) or each model's own (x (B, T, n, d), y
+  and mask with the same leading axis)."""
+  def one(model, x, y, mask):
     return _masked_system(mean_func, cov_func,
                           defs.GPParams(model=model, config=config), x, y,
                           mask, warp_func=warp_func, eps=eps)
 
-  return torch.func.vmap(one)(stacked_model)
+  per_model = 0 if x.ndim == 4 else None
+  return torch.func.vmap(one, in_dims=(0, per_model, per_model, per_model))(
+      stacked_model, x, y, mask)
 
 
 def batched_prior_nll_terms(config, stacked_model, warp_func=None):
@@ -264,6 +268,9 @@ def neg_log_marginal_likelihood_packed_batched(
   """neg_log_marginal_likelihood_packed of every model of a stack (leaves
   with a leading axis B): (B,).
 
+  `packed` holds the tasks every model is evaluated on, or each model's
+  own batch of them (x, y, mask and count with a leading axis B, as
+  subsample_packed_stacked draws for multi-start Adam; task_mask shared).
   The B x T systems are built at once and, in K1's regime, factored by
   ONE launch of the batched kernel on (B T, n, n) (stacks whose Gram
   matrices exceed _BATCH_GRAM_BYTES go in chunks, one launch a chunk).
@@ -272,30 +279,41 @@ def neg_log_marginal_likelihood_packed_batched(
   """
   shim = defs.GPParams(model={}, config=config)
   b = convert.stack_size(stacked_model)
+  per_model = packed.x.ndim == 4
+
+  def data_at(r):
+    if not per_model:
+      return packed
+    return packed._replace(x=packed.x[r], y=packed.y[r],
+                           mask=packed.mask[r], count=packed.count[r])
+
+  x_one = packed.x[0, 0] if per_model else packed.x[0]
   if (fused_mll.fused_requested(shim) and
-      fused_mll.se_nll_fused_applicable(cov_func, packed.x[0], shim)):
+      fused_mll.se_nll_fused_applicable(cov_func, x_one, shim)):
     return torch.stack([neg_log_marginal_likelihood_packed(
         mean_func, cov_func,
         defs.GPParams(model=convert.model_at(stacked_model, r),
                       config=config),
-        packed, warp_func, eps) for r in range(b)])
-  t, n = packed.x.shape[0], packed.x.shape[1]
+        data_at(r), warp_func, eps) for r in range(b)])
+  t, n = packed.x.shape[-3], packed.x.shape[-2]
+  use_k1 = _batched_chol_route(shim, data_at(0))
   step = max(1, _BATCH_GRAM_BYTES // max(1, 4 * t * n * n))
   per_task = []
   for start in range(0, b, step):
     part = convert.model_at(stacked_model, slice(start, start + step))
+    data = data_at(slice(start, start + step))
     kb, delta = batched_masked_system(
-        mean_func, cov_func, config, part, packed.x, packed.y, packed.mask,
+        mean_func, cov_func, config, part, data.x, data.y, data.mask,
         warp_func=warp_func, eps=eps)
     rows = kb.shape[0]
-    if _batched_chol_route(shim, packed):
+    if use_k1:
       quad, ld = batch_chol.nll_terms_batched(
           kb.reshape(rows * t, n, n).contiguous(),
           delta.reshape(rows * t, n, 1))
       per_task.append(0.5 * quad.reshape(rows, t) + ld.reshape(rows, t) +
-                      0.5 * packed.count * _LOG_2PI)
+                      0.5 * data.count * _LOG_2PI)
     else:
-      per_task.append(dense_nll(kb, delta, packed.count))
+      per_task.append(dense_nll(kb, delta, data.count))
   per_task = torch.where(packed.task_mask, torch.cat(per_task), 0.0)
   num = torch.clamp(packed.task_mask.sum(), min=1)
   return (per_task.sum(dim=-1) / num +
@@ -340,6 +358,44 @@ def take_rows(packed: PackedDataset, sel: torch.Tensor) -> PackedDataset:
           < count[:, None])
   return PackedDataset(x=x, y=y, mask=mask, count=count,
                        task_mask=packed.task_mask)
+
+
+def draw_restart_subsets(generator: Optional[torch.Generator],
+                         packed: PackedDataset, batch_size: int,
+                         num: int) -> torch.Tensor:
+  """(num, T, batch_size) int64: for each of `num` restarts, each task's
+  uniform subset of its valid rows (top-k of uniform scores, valid rows
+  first), drawn on the generator's device."""
+  t, n_max, _ = packed.x.shape
+  device = packed.x.device
+  scores = torch.rand((num, t, n_max), generator=generator,
+                      device=_draw_device(generator, device)).to(device)
+  scores = torch.where(packed.mask, scores, float('-inf'))
+  return torch.topk(scores, batch_size, dim=-1).indices
+
+
+def take_rows_stacked(packed: PackedDataset,
+                      sel: torch.Tensor) -> PackedDataset:
+  """take_rows of each restart's rows sel (R, T, B): x, y, mask and count
+  with a leading axis R; task_mask shared."""
+  r, t, batch_size = sel.shape
+  tasks = torch.arange(t, device=sel.device)[:, None]
+  count = torch.clamp(packed.count, max=batch_size).expand(r, t)
+  mask = (torch.arange(batch_size, device=sel.device) < count[..., None])
+  return PackedDataset(x=packed.x[tasks, sel], y=packed.y[tasks, sel],
+                       mask=mask, count=count, task_mask=packed.task_mask)
+
+
+def subsample_packed_stacked(generator: Optional[torch.Generator],
+                             packed: PackedDataset, batch_size: int,
+                             num: int) -> PackedDataset:
+  """subsample_packed for each of `num` restarts, each with its own draw
+  (draw_restart_subsets): a stacked batch (take_rows_stacked), or the
+  packed set itself, shared, when batch_size >= n_max."""
+  if batch_size >= packed.x.shape[1]:
+    return packed
+  return take_rows_stacked(
+      packed, draw_restart_subsets(generator, packed, batch_size, num))
 
 
 def _draw_device(generator: Optional[torch.Generator], device):

@@ -485,17 +485,20 @@ def fused_nll_core(x_scaled: torch.Tensor, delta: torch.Tensor, sv, da,
 
 def _fused_kernel_table():
   """cov_func -> (family, embedding) for every kernel the route serves:
-  the SE and Matern families, raw or over the MLP. The Kumaraswamy
-  variants wait for KumarWarp, and dot_product's Gram (one rank-d
-  product) stays on the dense path, as in the JAX package."""
+  the SE and Matern families, raw, over the MLP or over the Kumaraswamy
+  warp. dot_product's Gram (one rank-d product) stays on the dense path,
+  as in the JAX package."""
   from hyperbo_tpu_torch.models import kernel as kl
   return {
       kl.squared_exponential: ('se', None),
       kl.squared_exponential_mlp: ('se', 'mlp'),
+      kl.squared_exponential_kumar: ('se', 'kumar'),
       kl.matern32: ('matern32', None),
       kl.matern32_mlp: ('matern32', 'mlp'),
+      kl.matern32_kumar: ('matern32', 'kumar'),
       kl.matern52: ('matern52', None),
       kl.matern52_mlp: ('matern52', 'mlp'),
+      kl.matern52_kumar: ('matern52', 'kumar'),
   }
 
 
@@ -512,14 +515,18 @@ def kernel_family(cov_func) -> str:
 
 
 def _se_embed(params, x, cov_func, warp_func):
-  """The inputs the base kernel sees: raw or MLP-embedded. The MLP runs
-  outside the autograd Function, so its parameters get their gradients
-  from autograd, as from jax.grad in the JAX package."""
+  """The inputs the base kernel sees: raw, MLP- or Kumar-embedded. The
+  embedding runs outside the autograd Function, so its parameters get
+  their gradients from autograd, as from jax.grad in the JAX package."""
   name = getattr(cov_func, '__name__', '') if cov_func is not None else ''
   if name.endswith('_mlp'):
     mlp_params, = retrieve_params(params, ['mlp_params'],
                                   warp_func=warp_func)
     return bf.mlp_apply(mlp_params, x)
+  if name.endswith('_kumar'):
+    kumar_params, = retrieve_params(params, ['kumar_params'],
+                                    warp_func=warp_func)
+    return bf.kumar_warp_apply(kumar_params, x)
   return x
 
 
@@ -587,8 +594,8 @@ def se_nll_fused_masked(x_scaled, delta_masked, sv, da, count,
 
 def se_nll_fused_applicable(cov_func, x, params=None, y=None) -> bool:
   """True when the fused route can replace the dense NLL pipeline: a
-  served kernel family (with its MLP parameters present), x of at least
-  MIN_N rows and a single-column y. The same conditions as the JAX
+  served kernel family (with its MLP or Kumar parameters present), x of
+  at least MIN_N rows and a single-column y. The same conditions as the JAX
   package's, without its TPU feature-width limit."""
   if y is not None and y.ndim == 2 and y.shape[1] != 1:
     return False
@@ -597,6 +604,9 @@ def se_nll_fused_applicable(cov_func, x, params=None, y=None) -> bool:
   entry = _fused_kernel_table().get(cov_func)
   if entry is None:
     return False
+  if entry[1] == 'kumar':
+    if params is None or 'kumar_params' not in params.model:
+      return False
   if entry[1] == 'mlp':
     if params is None or 'mlp_params' not in params.model:
       return False

@@ -1,11 +1,14 @@
 """Adam training loops for GP objectives (port of
-hyperbo_tpu/train/adam.py: `_guarded_update`, `fit_adam_scan`,
-`make_fit_adam_scan`, and the packed runners `fit_adam_packed` and
-`make_fit_adam_packed` with their window sampler).
+hyperbo_tpu/train/adam.py: the host loop `fit_adam`, `_guarded_update`,
+`fit_adam_scan`, `make_fit_adam_scan`, the packed runners
+`fit_adam_packed` and `make_fit_adam_packed` with their window sampler,
+and the multi-start `fit_adam_packed_multistart`).
 
 The JAX package runs the whole training as one compiled `lax.scan`; here
 it is a Python loop over steps of fixed shape, with the NaN-freeze kept on
-the device (no host sync inside the loop).
+the device (no host sync inside the loop). `fit_adam` is the JAX
+package's host loop: it reads each step's loss back, raises on NaN at
+step 0 and stops at the first non-finite loss.
 
 The update is written out by hand to match `optax.adam` (b1 0.9,
 b2 0.999, eps 1e-8 added outside the square root, eps_root 0, bias
@@ -22,13 +25,23 @@ this module owns. The step count needs no freezing: once frozen, every
 later update is discarded, so t is the step index + 1 whenever a step
 is kept. `adam_update` is the bare rule, which the on-device BO loop's
 retraining (bo/ondevice.py) runs without the freeze, as the JAX package
-runs plain optax.adam there. Multistart and the host-loop `fit_adam` wait
-(ROADMAP Queue A).
+runs plain optax.adam there. The optimizer state a run returns
+(config['return_state']) and resumes from (config['opt_state']) is
+optax's ScaleByAdamState as a dict: {'count': steps taken, 'mu': first
+moments, 'nu': second moments}, the moments in the model's layout.
+
+Multi-start Adam trains R restarts of the packed NLL as one stack: every
+leaf carries a leading restart axis, each restart draws its own batch,
+and each step builds the R x T systems at once and factors them in ONE
+launch of kernel K1 (models/packed.neg_log_marginal_likelihood_packed_
+batched), with a NaN-freeze per restart.
 """
 
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+
+import logging
 
 import numpy as np
 import torch
@@ -57,30 +70,59 @@ def _unflatten(paths, leaves) -> Dict[str, Any]:
   return tree
 
 
-class AdamState:
-  """Parameters, moments and NaN-freeze latch of one training run."""
+def _leaf_at(tree, path):
+  for k in path:
+    tree = tree[k]
+  return tree
 
-  def __init__(self, model: Dict[str, Any]):
+
+class AdamState:
+  """Parameters, moments and NaN-freeze latch of one training run, or of
+  a stack of runs (`batch_shape` (R,): every leaf has a leading restart
+  axis and each restart has its own latch).
+
+  `opt_state` (optax's state as a dict, see `opt_state()`) resumes the
+  moments and the step count of an earlier run."""
+
+  def __init__(self, model: Dict[str, Any],
+               opt_state: Optional[Dict[str, Any]] = None,
+               batch_shape: Tuple[int, ...] = ()):
     flat = _flatten(model)
     self.paths = [p for p, _ in flat]
     self.params = [leaf.detach().clone() for _, leaf in flat]
-    self.m = [torch.zeros_like(p) for p in self.params]
-    self.v = [torch.zeros_like(p) for p in self.params]
+    if opt_state is None:
+      self.m = [torch.zeros_like(p) for p in self.params]
+      self.v = [torch.zeros_like(p) for p in self.params]
+      self.step = 0
+    else:
+      # The moments may come back from a checkpoint as numpy arrays.
+      self.m, self.v = [
+          [torch.as_tensor(_leaf_at(opt_state[key], path), dtype=p.dtype,
+                           device=p.device).clone()
+           for path, p in zip(self.paths, self.params)]
+          for key in ('mu', 'nu')]
+      self.step = int(opt_state['count'])
     device = self.params[0].device if self.params else 'cpu'
-    self.frozen = torch.zeros((), dtype=torch.bool, device=device)
-    self.step = 0
+    self.frozen = torch.zeros(batch_shape, dtype=torch.bool, device=device)
 
   def model(self) -> Dict[str, Any]:
     return _unflatten(self.paths, self.params)
 
+  def opt_state(self) -> Dict[str, Any]:
+    """optax's ScaleByAdamState of this run: count, mu and nu."""
+    return {'count': self.step, 'mu': _unflatten(self.paths, self.m),
+            'nu': _unflatten(self.paths, self.v)}
+
 
 def value_and_grads(loss_fn, state: AdamState, batch):
   """(loss, gradients) of loss_fn at the state's parameters; a leaf the
-  loss does not reach gets a zero gradient."""
+  loss does not reach gets a zero gradient. A stack's loss has one entry
+  a restart, and each restart's leaves get the gradient of its own."""
   params = [p.detach().requires_grad_(True) for p in state.params]
   with torch.enable_grad():
     loss = loss_fn(_unflatten(state.paths, params), batch)
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = torch.autograd.grad(loss if loss.ndim == 0 else loss.sum(),
+                                params, allow_unused=True)
   grads = [torch.zeros_like(p) if g is None else g
            for p, g in zip(params, grads)]
   return loss.detach(), grads
@@ -116,11 +158,64 @@ def _guarded_update(lr: float, loss_fn, state: AdamState, batch):
     finite = torch.isfinite(loss)
     ok = finite & ~state.frozen
     for i, (p, m, v) in enumerate(new):
-      state.params[i] = torch.where(ok, p, state.params[i])
-      state.m[i] = torch.where(ok, m, state.m[i])
-      state.v[i] = torch.where(ok, v, state.v[i])
+      keep = ok.reshape(ok.shape + (1,) * (p.ndim - ok.ndim))
+      state.params[i] = torch.where(keep, p, state.params[i])
+      state.m[i] = torch.where(keep, m, state.m[i])
+      state.v[i] = torch.where(keep, v, state.v[i])
     state.frozen = state.frozen | ~finite
   return loss
+
+
+def fit_adam(loss_fn: Callable[[Dict[str, Any], Any], torch.Tensor],
+             model_params: Dict[str, Any],
+             dataset_iter,
+             learning_rate: float,
+             max_training_step: int,
+             callback: Optional[Callable[..., Any]] = None):
+  """Host-loop Adam with the JAX package's NaN rules.
+
+  Each step takes the next batch of `dataset_iter` (the host subsampler,
+  models/divergences.sub_sample_dataset_iterator) and reads its loss back:
+  a NaN at step 0 raises ValueError, the first non-finite loss ends the
+  loop and keeps the last parameters whose loss was finite.
+  `callback(step, model_params, loss)` fires after each kept step.
+
+  Returns (model_params, final_loss): the last finite parameters and the
+  loss re-evaluated at them on the final batch (after an instability
+  stop, the non-finite loss that stopped the loop).
+  """
+  state = AdamState(model_params)
+  kept = model_params
+  batch = None
+  loss = torch.tensor(float('nan'))
+  unstable = False
+  for i in range(max_training_step):
+    batch = next(dataset_iter)
+    loss, grads = value_and_grads(loss_fn, state, batch)
+    loss_val = float(loss)
+    if np.isnan(loss_val) and i == 0:
+      raise ValueError(
+          f'Encountered NaN in loss function. current_loss = {loss_val}.')
+    if not np.isfinite(loss_val):
+      logging.info('adam stopped at step %d due to instability.', i)
+      unstable = True
+      break
+    kept = state.model()
+    new = adam_update(learning_rate, state, grads)
+    state.params = [p for p, _, _ in new]
+    state.m = [m for _, m, _ in new]
+    state.v = [v for _, _, v in new]
+    state.step += 1
+    if callback:
+      callback(i, kept, loss)
+  if batch is not None and not unstable:
+    current = state.model()
+    with torch.no_grad():
+      final_loss = loss_fn(current, batch)
+    if np.isfinite(float(final_loss)):
+      kept = current
+    return kept, final_loss
+  return kept, loss
 
 
 def fit_adam_scan(loss_fn: Callable[[Dict[str, Any], Any], torch.Tensor],
@@ -135,21 +230,27 @@ def fit_adam_scan(loss_fn: Callable[[Dict[str, Any], Any], torch.Tensor],
   `subsample_fn(generator, data)` draws each step's batch (None = full
   batch). With `callback` set, `callback(step, model_params, loss)` fires
   after every config['checkpoint_every'] steps (default 100) and after the
-  last step, with that step's loss; it changes nothing in the iterates.
+  last step, with that step's loss, as between the JAX package's chunks;
+  it changes nothing in the iterates, so a run with checkpoints equals one
+  without.
 
   Returns (model_params, losses): trained parameters and the (steps,)
-  loss trace.
+  loss trace; with config['return_state'], (model_params, losses,
+  opt_state) (see AdamState.opt_state), from which config['opt_state']
+  resumes a later run.
   """
   steps = int(config['max_training_step'])
   lr = float(config['learning_rate'])
   every = int(config.get('checkpoint_every', 0) or 0) or 100
-  state = AdamState(model_params)
+  state = AdamState(model_params, config.get('opt_state'))
   losses: List[torch.Tensor] = []
   for step in range(1, steps + 1):
     batch = subsample_fn(generator, data) if subsample_fn else data
     losses.append(_guarded_update(lr, loss_fn, state, batch))
     if callback is not None and (step % every == 0 or step == steps):
       callback(step, state.model(), losses[-1])
+  if config.get('return_state'):
+    return state.model(), torch.stack(losses), state.opt_state()
   return state.model(), torch.stack(losses)
 
 
@@ -287,3 +388,112 @@ def make_fit_adam_packed(mean_func,
                        batch_size, window)
 
   return run
+
+
+def draw_restart_perturbation(generator: Optional[torch.Generator],
+                              model: Dict[str, Any],
+                              num_restarts: int) -> Dict[str, Any]:
+  """Standard normal noise of shape (num_restarts,) + leaf shape for
+  every leaf of the model, drawn on the generator's device in the
+  model's leaf order."""
+  def draw(leaf):
+    device = leaf.device
+    gen_device = generator.device if generator is not None else device
+    return torch.randn((num_restarts,) + tuple(leaf.shape),
+                       generator=generator, device=gen_device).to(device)
+
+  return _unflatten(*zip(*[(path, draw(leaf))
+                           for path, leaf in _flatten(model)]))
+
+
+def fit_adam_packed_multistart(mean_func,
+                               cov_func,
+                               model_params: Dict[str, Any],
+                               packed,
+                               config: Dict[str, Any],
+                               warp_func=None,
+                               generator: Optional[torch.Generator] = None,
+                               num_restarts: int = 4,
+                               perturb_scale: float = 1.0,
+                               loss_fn: Optional[Callable] = None,
+                               callback: Optional[Callable[..., Any]] = None,
+                               device: Union[str, torch.device] = 'cuda'):
+  """Multi-start Adam: R restarts of the packed NLL trained as one stack.
+
+  Restart 0 keeps the given parameters; restarts 1 to R-1 add
+  perturb_scale times standard normal noise to every (unconstrained) leaf
+  (draw_restart_perturbation). Each step, every restart draws its own
+  batch of every task (models/packed.subsample_packed_stacked), the R x T
+  systems are built at once and, at n <= 128, factored by ONE launch of
+  kernel K1; each restart has its own NaN-freeze. Nothing is read back
+  inside a chunk. `loss_fn(model, batch)` overrides the packed NLL and is
+  then evaluated restart by restart.
+
+  The restart with the best final objective wins, evaluated on the full
+  packed set (non-finite finals never win). With `callback` set (or
+  config['checkpoint_every'] > 0), `callback(step, best_model, best_loss)`
+  fires after every config['checkpoint_every'] steps (default 100, as the
+  JAX package's chunks) with the running best, and after the last step.
+
+  Returns (best_model, best_loss, finals): finals is the (R,) full-set
+  objective of every restart.
+  """
+  from hyperbo_tpu_torch.core import convert
+  from hyperbo_tpu_torch.models import packed as packed_lib
+
+  packed = _packed_on_device(packed, device)
+  dev = packed.x.device
+  if generator is None:
+    generator = torch.Generator(device=dev).manual_seed(0)
+  lr = float(config['learning_rate'])
+  steps = int(config['max_training_step'])
+  batch_size = int(config.get('batch_size', packed.x.shape[1]))
+
+  if loss_fn is None:
+    def stacked_loss(models, batch):
+      return packed_lib.neg_log_marginal_likelihood_packed_batched(
+          mean_func, cov_func, config, models, batch, warp_func=warp_func)
+  else:
+    def stacked_loss(models, batch):
+      def at(r):
+        if batch.x.ndim == 3:
+          return batch
+        return batch._replace(x=batch.x[r], y=batch.y[r],
+                              mask=batch.mask[r], count=batch.count[r])
+      return torch.stack([loss_fn(convert.model_at(models, r), at(r))
+                          for r in range(num_restarts)])
+
+  model = convert.model_to(model_params, dev)
+  noise = draw_restart_perturbation(generator, model, num_restarts)
+  paths, leaves = [], []
+  for path, leaf in _flatten(model):
+    eps = perturb_scale * _leaf_at(noise, path)
+    # Restart 0 keeps the given init (a concatenation: setting the entry
+    # in place would wait for the device).
+    eps = torch.cat([torch.zeros_like(eps[:1]), eps[1:]])
+    paths.append(path)
+    leaves.append(leaf[None] + eps)
+  state = AdamState(_unflatten(paths, leaves),
+                    batch_shape=(num_restarts,))
+
+  @torch.no_grad()
+  def eval_best(models):
+    finals = stacked_loss(models, packed)
+    finals = torch.where(torch.isfinite(finals), finals, float('inf'))
+    # The winner is taken by index_select: no read of the device.
+    best = torch.argmin(finals)
+    return (convert.model_at(models, best),
+            finals.index_select(0, best.reshape(1))[0], finals)
+
+  every = int(config.get('checkpoint_every', 0) or 0) or 100
+  for step in range(1, steps + 1):
+    batch = packed_lib.subsample_packed_stacked(generator, packed,
+                                                batch_size, num_restarts)
+    _guarded_update(lr, stacked_loss, state, batch)
+    if callback is not None and step % every == 0 and step < steps:
+      best_model, best_loss, _ = eval_best(state.model())
+      callback(step, best_model, best_loss)
+  best_model, best_loss, finals = eval_best(state.model())
+  if callback is not None:
+    callback(steps, best_model, best_loss)
+  return best_model, best_loss, finals

@@ -40,7 +40,7 @@ def _sweep(k):
 @pytest.mark.parametrize('n', [40, 100, 128])
 def test_linv_t_plain_matches_jax(n):
   kb = _spd_batch(n, 3, n)
-  want = pbc._linv_t_xla(jnp.asarray(kb))
+  want = jax.jit(pbc._linv_t_xla)(jnp.asarray(kb))
   got = tbc.batched_linv_t(torch.from_numpy(kb))
   assert got.shape == (3, n, n)
   np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=5e-6)
@@ -63,7 +63,7 @@ def test_nll_terms_value_and_grad_match_jax():
     q, ld = pbc.nll_terms_batched(kb, delta, 'xla', False)
     return jnp.sum(0.5 * q + ld)
 
-  v_jax, g_jax = jax.value_and_grad(f_jax, argnums=(0, 1))(
+  v_jax, g_jax = jax.jit(jax.value_and_grad(f_jax, argnums=(0, 1)))(
       jnp.asarray(kb), jnp.asarray(delta))
   kb_t = torch.from_numpy(kb).requires_grad_(True)
   delta_t = torch.from_numpy(delta).requires_grad_(True)
@@ -80,8 +80,8 @@ def test_non_pd_gives_nan_in_both_packages():
   kb[1] -= 10.0 * np.eye(32, dtype=np.float32)   # task 1 indefinite
   delta = np.random.default_rng(9).normal(size=(2, 32, 1)).astype(
       np.float32)
-  q_j, ld_j = pbc.nll_terms_batched(jnp.asarray(kb), jnp.asarray(delta),
-                                    'xla', False)
+  q_j, ld_j = jax.jit(lambda k, d: pbc.nll_terms_batched(k, d, 'xla', False))(
+      jnp.asarray(kb), jnp.asarray(delta))
   q_t, ld_t = tbc.nll_terms_batched(torch.from_numpy(kb),
                                     torch.from_numpy(delta))
   for q, ld in ((np.asarray(q_j), np.asarray(ld_j)),

@@ -19,6 +19,7 @@ pipeline. Training: the loss traces with the switch on and off within rtol
 1e-6.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -98,10 +99,12 @@ def test_matern_matches_jax_chain():
   kernel serves them the same way), Matern-5/2 masked."""
   for kfam, masked, seed in (('matern32', False, 1), ('matern52', True, 2)):
     x, delta, valid, l = _problem(seed, kfam, masked=masked)
-    want = pallas_mll._se_core_bwd(
-        jnp.asarray(l), jnp.asarray(x), jnp.asarray(delta), jnp.float32(SV),
-        None if valid is None else jnp.asarray(valid), kfam,
-        bwd_cfg=(False, 'gemm', 'high', '0'))
+    want = jax.jit(lambda l, x, delta, valid, kfam=kfam:
+                   pallas_mll._se_core_bwd(
+                       l, x, delta, jnp.float32(SV), valid, kfam,
+                       bwd_cfg=(False, 'gemm', 'high', '0')))(
+        jnp.asarray(l), jnp.asarray(x), jnp.asarray(delta),
+        None if valid is None else jnp.asarray(valid))
     _check(_port(x, delta, valid, l, kfam), *want)
 
 

@@ -34,7 +34,10 @@ repeat the plain one bitwise. The HGP runners: the fixed-sample one free of
 host syncs, picking as on the CPU and, with S identical samples, as the
 plain runner; the re-sampling one launching K1 once per batched corpus
 evaluation, its chain-batched corpus log prob within rtol 1e-4 of the
-CPU's.
+CPU's. Multi-start Adam's stacked systems: one K1 launch over every
+restart's tasks bitwise the per-restart launches, the stacked NLL within
+rtol 1e-6 of each restart alone; the fused route over a Kumar embedding
+within value rtol 1e-4 and gradient max rel 5e-3 of float64.
 """
 
 import numpy as np
@@ -742,3 +745,99 @@ def test_hgp_resample_runner_launches_k1_per_batched_evaluation(
   assert torch.isfinite(y).all() and sel.shape == (6,)
   assert all(bool(torch.isfinite(v).all()) for s in samples
              for v in s.values())
+
+
+@pytest.mark.cuda
+def test_k1_over_a_restart_stack_equals_per_restart_launches(cuda_device):
+  """Multi-start Adam's systems: one K1 launch over R x T systems gives
+  each restart's B = L^-T bitwise what R launches of T give; the stacked
+  NLL of R restarts on their own batches within rtol 1e-6 of each alone;
+  fit_adam_packed_multistart on the card reads nothing back and launches
+  K1 once a step."""
+  from hyperbo_tpu_torch.models import packed as packed_lib
+  from hyperbo_tpu_torch.train import adam
+  stack = _spd_batch(21, 4 * 5, 40).to(cuda_device)
+  before = batch_chol.KERNEL.launches
+  whole = batch_chol.batched_linv_t(stack)
+  assert batch_chol.KERNEL.launches - before == 1
+  for r in range(4):
+    part = batch_chol.batched_linv_t(stack[5 * r:5 * r + 5].contiguous())
+    assert torch.equal(whole[5 * r:5 * r + 5], part), r
+
+  rng = np.random.default_rng(12)
+  data = {i: defs.SubDataset(rng.uniform(size=(50, 3)).astype(np.float32),
+                             rng.normal(size=(50, 1)).astype(np.float32))
+          for i in range(5)}
+  packed, _ = packed_lib.pack_dataset(data, device=cuda_device)
+  model = {'constant': 0.1, 'lengthscale': np.full((3,), 0.4, np.float32),
+           'signal_variance': 0.2, 'noise_variance': -3.0}
+  stacked = convert.stack_models(
+      [{k: np.asarray(v, np.float32) + 0.05 * r for k, v in model.items()}
+       for r in range(4)], cuda_device)
+  sel = torch.from_numpy(np.stack([np.stack(
+      [rng.permutation(50)[:16] for _ in range(5)]) for _ in range(4)])).to(
+          cuda_device)
+  before = batch_chol.KERNEL.launches
+  got = packed_lib.neg_log_marginal_likelihood_packed_batched(
+      mean.constant, kernel.squared_exponential, {}, stacked,
+      packed_lib.take_rows_stacked(packed, sel), warp_func=DEFAULT_WARP_FUNC)
+  assert batch_chol.KERNEL.launches - before == 1
+  for r in range(4):
+    one = packed_lib.neg_log_marginal_likelihood_packed(
+        mean.constant, kernel.squared_exponential,
+        defs.GPParams(model=convert.model_at(stacked, r), config={}),
+        packed_lib.take_rows(packed, sel[r]), warp_func=DEFAULT_WARP_FUNC)
+    np.testing.assert_allclose(float(got[r]), float(one), rtol=1e-6)
+
+  config = {'learning_rate': 1e-2, 'max_training_step': 6, 'batch_size': 16}
+  model = convert.model_to(model, cuda_device)
+  generator = torch.Generator(device=cuda_device).manual_seed(0)
+  before = batch_chol.KERNEL.launches
+  with _NoHostSync():
+    best, best_loss, finals = adam.fit_adam_packed_multistart(
+        mean.constant, kernel.squared_exponential, model, packed, config,
+        warp_func=DEFAULT_WARP_FUNC, generator=generator, num_restarts=4)
+  assert batch_chol.KERNEL.launches - before == 6 + 1  # steps, eval_best
+  assert finals.shape == (4,) and bool(torch.isfinite(best_loss))
+  assert float(best_loss) == float(finals.min())
+
+
+@pytest.mark.cuda
+def test_fused_route_over_kumar_embedding_matches_plain(cuda_device):
+  """The fused NLL through K2-K4 over an SE-Kumar embedding (512 rows, and
+  520 rows on the masked route) against the float64 dense route on the
+  card: value rtol 1e-4, gradient max rel 5e-3 per leaf, the warp's a and b
+  included."""
+  from hyperbo_tpu_torch.models import objectives as obj
+  rng = np.random.default_rng(13)
+  data = {i: (rng.uniform(size=(n, 4)), rng.normal(size=(n, 1)))
+          for i, n in enumerate((512, 520))}
+
+  def value_and_grad(dtype, fused):
+    opts = dict(dtype=dtype, device=cuda_device)
+    leaves = [torch.tensor(0.1, **opts), torch.full((4,), 0.5, **opts),
+              torch.tensor(0.2, **opts), torch.tensor(-2.0, **opts),
+              torch.linspace(-0.3, 0.3, 4, **opts),
+              torch.linspace(0.2, -0.2, 4, **opts)]
+    for v in leaves:
+      v.requires_grad_(True)
+    m = dict(zip(('constant', 'lengthscale', 'signal_variance',
+                  'noise_variance'), leaves[:4]),
+             kumar_params={'a': leaves[4], 'b': leaves[5]})
+    dataset = {k: defs.SubDataset(torch.tensor(x, **opts),
+                                  torch.tensor(y, **opts))
+               for k, (x, y) in data.items()}
+    val = obj.neg_log_marginal_likelihood(
+        mean.constant, kernel.squared_exponential_kumar,
+        defs.GPParams(model=m, config={'fused_mll': fused}), dataset,
+        warp_func=DEFAULT_WARP_FUNC)
+    return val, torch.autograd.grad(val, leaves)
+
+  before = fused_mll.KERNEL.launches
+  val, grads = value_and_grad(torch.float32, True)
+  assert fused_mll.KERNEL.launches - before == 2
+  val64, grads64 = value_and_grad(torch.float64, False)
+  np.testing.assert_allclose(float(val), float(val64), rtol=1e-4)
+  for g, w in zip(grads, grads64):
+    err = float((g.double() - w).abs().max() / w.abs().max())
+    assert err <= 5e-3, err

@@ -101,12 +101,6 @@ def _torch_value_and_grad(fn, model):
   return float(val.detach()), {k: g.numpy() for k, g in zip(leaves, grads)}
 
 
-def _jax_value_and_grad(fn, model):
-  val, grads = jax.jit(jax.value_and_grad(fn))(
-      jax.tree.map(jnp.asarray, model))
-  return float(val), {k: np.asarray(g) for k, g in grads.items()}
-
-
 def _assert_value_and_grad(got, want, rtol=1e-4, grtol=1e-3, gatol=1e-4):
   np.testing.assert_allclose(got[0], want[0], rtol=rtol)
   for k in want[1]:
@@ -114,18 +108,112 @@ def _assert_value_and_grad(got, want, rtol=1e-4, grtol=1e-3, gatol=1e-4):
                                atol=gatol, err_msg=k)
 
 
-def test_linalg_and_priors_match_jax():
-  """The custom-VJP inverse product (vector and matrix right-hand sides),
-  the SVD square root in both forms, the safe square root's clamped
-  gradient, and the priors."""
+def _linalg_inputs():
   _, spd = _rand_mvn(0, 6)
   spd = spd / 6 + 2 * np.eye(6, dtype=np.float32)
   rng = np.random.default_rng(1)
-  for rhs in (rng.normal(size=(6,)), rng.normal(size=(6, 3))):
-    rhs = rhs.astype(np.float32)
-    want = jax.jit(jax.value_and_grad(
-        lambda m, v: jnp.sum(jlinalg.inverse_spdmatrix_vector_product(
-            m, v) ** 2), argnums=(0, 1)))(jnp.asarray(spd), jnp.asarray(rhs))
+  return spd, [rng.normal(size=(6,)).astype(np.float32),
+               rng.normal(size=(6, 3)).astype(np.float32)]
+
+
+def _divergence_inputs():
+  mu0, cov0 = _rand_mvn(3, 8)
+  cov0 = cov0 + np.eye(8, dtype=np.float32)
+  mu1, cov1 = _rand_mvn(4, 8)
+  cov1 = cov1 / 8 + 2 * np.eye(8, dtype=np.float32)
+  _, cov0_low = _rand_mvn(5, 8, rank=4)
+  return mu0, cov0, mu1, cov1, cov0_low
+
+
+PRIOR_VALUES = np.array([0.05, 0.7, 1.9], np.float32)
+KUMAR_PRIOR = {'a': np.array([0.3, -1.0], np.float32),
+               'b': np.array([2.5], np.float32)}
+PACKED_EKL_CASES = ((True, 0.0), (True, 1e-6), (False, 0.0), (False, 1e-6))
+
+
+def _objective_pairs():
+  return (
+      (jobj.kl, tobj.kl),
+      (jobj.euc, tobj.euc),
+      (functools.partial(jobj.nll, use_cholesky=False),
+       functools.partial(tobj.nll, use_cholesky=False)),
+      (jobj.nll_regkl(0.5), tobj.nll_regkl(0.5)),
+      (jobj.nll_regeuc(2.), tobj.nll_regeuc(2.)))
+
+
+def _value_and_grad_np(vg):
+  val, grads = vg
+  return float(val), {k: np.asarray(g) for k, g in grads.items()}
+
+
+@pytest.fixture(scope='module')
+def jax_ref():
+  """Every JAX value of this file that traces, as numpy, from ONE jitted
+  program: the linear-algebra helpers and priors, the partial KL and the
+  Euclidean distance, every objective's value and gradient, the packed
+  EKL variants and GP.stats(). The full KL of a sample covariance and the
+  SVD square root without jit_safe take shapes from a rank and stay
+  eager in their tests."""
+  spd, rhss = _linalg_inputs()
+  mu0, cov0, mu1, cov1, _ = _divergence_inputs()
+  cov_low = _rand_mvn(2, 8, rank=3)[1]
+  objective_data = _jdata(_dataset(1))
+  jpack, _ = jpacked.pack_aligned_dataset(_jdata(_dataset(2, plain=())))
+  stats_model = jgp.GP(
+      _jdata(_dataset(3)), jmean.constant, jkernel.squared_exponential,
+      jdefs.GPParams(model=jax.tree.map(jnp.asarray, _model()),
+                     config={'objective': 'nll'}), JWARP)
+  model = jax.tree.map(jnp.asarray, _model())
+
+  def everything():
+    out = {}
+    for i, rhs in enumerate(rhss):
+      out[f'inverse {i}'] = jax.value_and_grad(
+          lambda m, v: jnp.sum(jlinalg.inverse_spdmatrix_vector_product(
+              m, v) ** 2), argnums=(0, 1))(jnp.asarray(spd),
+                                           jnp.asarray(rhs))
+    out['svd sqrt'] = jlinalg.svd_matrix_sqrt(jnp.asarray(cov_low),
+                                              jit_safe=True)
+    for name in ('noise_variance', 'signal_variance', 'constant'):
+      out[f'prior {name}'] = jpriors.DEFAULT_PRIORS[name](
+          jnp.asarray(PRIOR_VALUES))
+    out['kumar prior'] = jpriors.kumar_prior(
+        jax.tree.map(jnp.asarray, KUMAR_PRIOR))
+    for name, fn in (('partial', jdiv.partial_kl_mvn),
+                     ('euclidean', jdiv.euclidean_multivariate_normal)):
+      out[f'divergence {name}'] = jax.value_and_grad(
+          lambda m, c, fn=fn: fn(jnp.asarray(mu0), jnp.asarray(cov0), m, c),
+          argnums=(0, 1))(jnp.asarray(mu1), jnp.asarray(cov1))
+    for i, (jfn, _) in enumerate(_objective_pairs()):
+      out[f'objective {i}'] = jax.value_and_grad(
+          lambda m, jfn=jfn: jfn(
+              jmean.constant, jkernel.squared_exponential,
+              jdefs.GPParams(model=m, config={
+                  'priors': jpriors.DEFAULT_PRIORS}), objective_data,
+              warp_func=JWARP))(model)
+    for partial, eps in PACKED_EKL_CASES:
+      out[f'packed {partial} {eps}'] = (
+          jpacked.multivariate_normal_divergence_packed(
+              jmean.constant, jkernel.squared_exponential,
+              jdefs.GPParams(model=model), jpack, warp_func=JWARP,
+              partial=partial, eps=eps))
+    out['packed grad'] = jax.value_and_grad(
+        lambda m: jpacked.multivariate_normal_divergence_packed(
+            jmean.constant, jkernel.squared_exponential,
+            jdefs.GPParams(model=m), jpack, warp_func=JWARP))(model)
+    out['stats'] = stats_model.stats(verbose=False)
+    return out
+
+  return jax.tree.map(np.asarray, jax.jit(everything)())
+
+
+def test_linalg_and_priors_match_jax(jax_ref):
+  """The custom-VJP inverse product (vector and matrix right-hand sides),
+  the SVD square root in both forms, the safe square root's clamped
+  gradient, and the priors."""
+  spd, rhss = _linalg_inputs()
+  for i, rhs in enumerate(rhss):
+    want = jax_ref[f'inverse {i}']
     m, v = _t(spd).requires_grad_(True), _t(rhs).requires_grad_(True)
     val = torch.sum(tlinalg.inverse_spdmatrix_vector_product(m, v) ** 2)
     got = torch.autograd.grad(val, (m, v))
@@ -138,8 +226,8 @@ def test_linalg_and_priors_match_jax():
   _, cov = _rand_mvn(2, 8, rank=3)
   for jit_safe in (False, True):
     a_t = tlinalg.svd_matrix_sqrt(_t(cov), jit_safe=jit_safe).numpy()
-    a_j = np.asarray(jlinalg.svd_matrix_sqrt(jnp.asarray(cov),
-                                             jit_safe=jit_safe))
+    a_j = (jax_ref['svd sqrt'] if jit_safe else np.asarray(
+        jlinalg.svd_matrix_sqrt(jnp.asarray(cov), jit_safe=False)))
     assert a_t.shape == a_j.shape == ((8, 8) if jit_safe else (8, 3))
     np.testing.assert_allclose(a_t @ a_t.T, cov, atol=1e-4)
   x = torch.zeros((), requires_grad=True)
@@ -149,42 +237,38 @@ def test_linalg_and_priors_match_jax():
                                             x)[0]).all()
   np.testing.assert_allclose(float(tlinalg.safe_l2norm(_t([3., 4.]))), 5.)
 
-  vals = np.array([0.05, 0.7, 1.9], np.float32)
   for name in ('noise_variance', 'signal_variance', 'constant'):
     np.testing.assert_allclose(
-        float(tpriors.DEFAULT_PRIORS[name](_t(vals))),
-        float(jpriors.DEFAULT_PRIORS[name](jnp.asarray(vals))), rtol=1e-5)
-  kumar = {'a': np.array([0.3, -1.0], np.float32),
-           'b': np.array([2.5], np.float32)}
+        float(tpriors.DEFAULT_PRIORS[name](_t(PRIOR_VALUES))),
+        float(jax_ref[f'prior {name}']), rtol=1e-5)
   np.testing.assert_allclose(
-      float(tpriors.kumar_prior({k: _t(v) for k, v in kumar.items()})),
-      float(jpriors.kumar_prior(jax.tree.map(jnp.asarray, kumar))),
-      rtol=1e-5)
+      float(tpriors.kumar_prior({k: _t(v) for k, v in KUMAR_PRIOR.items()})),
+      float(jax_ref['kumar prior']), rtol=1e-5)
   assert float(tpriors.kumar_prior({'a': _t([9.0])})) == -np.inf
 
 
-def test_divergences_match_jax():
+def test_divergences_match_jax(jax_ref):
   """Partial KL, full KL (full-rank and rank-deficient sample covariance,
   with and without eps) and the Euclidean distance: values, and gradients
   with respect to the model's mean and covariance."""
-  mu0, cov0 = _rand_mvn(3, 8)
-  cov0 = cov0 + np.eye(8, dtype=np.float32)
-  mu1, cov1 = _rand_mvn(4, 8)
-  cov1 = cov1 / 8 + 2 * np.eye(8, dtype=np.float32)
-  _, cov0_low = _rand_mvn(5, 8, rank=4)
-  cases = [(jdiv.partial_kl_mvn, tdiv.partial_kl_mvn, cov0, {}),
+  mu0, cov0, mu1, cov1, cov0_low = _divergence_inputs()
+  cases = [(jax_ref['divergence partial'], tdiv.partial_kl_mvn, cov0, {}),
            (jdiv.kl_multivariate_normal, tdiv.kl_multivariate_normal, cov0,
             dict(partial=False)),
            (jdiv.kl_multivariate_normal, tdiv.kl_multivariate_normal,
             cov0_low, dict(partial=False)),
            (jdiv.kl_multivariate_normal, tdiv.kl_multivariate_normal,
             cov0_low, dict(partial=False, eps=1e-3, weight=0.5)),
-           (jdiv.euclidean_multivariate_normal,
+           (jax_ref['divergence euclidean'],
             tdiv.euclidean_multivariate_normal, cov0, {})]
   for jfn, tfn, c0, kw in cases:
-    want = jax.value_and_grad(
-        lambda m, c: jfn(jnp.asarray(mu0), jnp.asarray(c0), m, c, **kw),
-        argnums=(0, 1))(jnp.asarray(mu1), jnp.asarray(cov1))
+    if callable(jfn):
+      # The full KL: its SVD square root's rank sets a shape, so eager.
+      want = jax.value_and_grad(
+          lambda m, c: jfn(jnp.asarray(mu0), jnp.asarray(c0), m, c, **kw),
+          argnums=(0, 1))(jnp.asarray(mu1), jnp.asarray(cov1))
+    else:
+      want = jfn
     m, c = _t(mu1).requires_grad_(True), _t(cov1).requires_grad_(True)
     val = tfn(_t(mu0), _t(c0), m, c, **kw)
     got = torch.autograd.grad(val, (m, c))
@@ -198,25 +282,14 @@ def test_divergences_match_jax():
   assert abs(float(same)) < 1e-4
 
 
-def test_objectives_match_jax():
+def test_objectives_match_jax(jax_ref):
   """Value and gradient of every objective over a dataset of aligned and
   non-aligned sub-datasets, with the default hyperpriors on."""
-  data = _dataset(1)
-  jd, td = _jdata(data), _tdata(data)
-  for jfn, tfn in (
-      (jobj.kl, tobj.kl),
-      (jobj.euc, tobj.euc),
-      (functools.partial(jobj.nll, use_cholesky=False),
-       functools.partial(tobj.nll, use_cholesky=False)),
-      (jobj.nll_regkl(0.5), tobj.nll_regkl(0.5)),
-      (jobj.nll_regeuc(2.), tobj.nll_regeuc(2.))):
+  td = _tdata(_dataset(1))
+  for i, (jfn, tfn) in enumerate(_objective_pairs()):
     assert (getattr(tfn, '_packed_spec', None) ==
             getattr(jfn, '_packed_spec', None))
-    want = _jax_value_and_grad(
-        lambda m: jfn(jmean.constant, jkernel.squared_exponential,
-                      jdefs.GPParams(model=m, config={
-                          'priors': jpriors.DEFAULT_PRIORS}), jd,
-                      warp_func=JWARP), _model())
+    want = _value_and_grad_np(jax_ref[f'objective {i}'])
     got = _torch_value_and_grad(
         lambda m: tfn(tmean.constant, tkernel.squared_exponential,
                       tdefs.GPParams(model=m, config={
@@ -225,24 +298,17 @@ def test_objectives_match_jax():
     _assert_value_and_grad(got, want)
 
 
-def test_packed_ekl_matches_jax():
+def test_packed_ekl_matches_jax(jax_ref):
   """The packed aligned EKL, partial and full, with and without the eps
   ridge, against the JAX package's packed EKL and the port's own host
   loop; the partial EKL's gradient; injected and drawn subsamples."""
   data = _dataset(2, plain=())
-  jd, td = _jdata(data), _tdata(data)
-  jpack, _ = jpacked.pack_aligned_dataset(jd)
+  td = _tdata(data)
   tpack, keys = tpacked.pack_aligned_dataset(td, device='cpu')
   assert keys == list(data) and tpack.y.shape == (3, 16, 8)
-  for partial, eps in ((True, 0.0), (True, 1e-6), (False, 0.0),
-                       (False, 1e-6)):
+  for partial, eps in PACKED_EKL_CASES:
     tol = 3e-3 if eps else 5e-4
-    jdist = functools.partial(
-        jpacked.multivariate_normal_divergence_packed, jmean.constant,
-        jkernel.squared_exponential, warp_func=JWARP, partial=partial,
-        eps=eps)
-    want = float(jax.jit(lambda m: jdist(jdefs.GPParams(model=m), jpack))(
-        jax.tree.map(jnp.asarray, _model())))
+    want = float(jax_ref[f'packed {partial} {eps}'])
     params = tdefs.GPParams(model={k: _t(v) for k, v in _model().items()})
     got = float(tpacked.multivariate_normal_divergence_packed(
         tmean.constant, tkernel.squared_exponential, params, tpack,
@@ -254,10 +320,7 @@ def test_packed_ekl_matches_jax():
     np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     np.testing.assert_allclose(got, host, rtol=tol, atol=tol)
 
-  want = _jax_value_and_grad(
-      lambda m: jpacked.multivariate_normal_divergence_packed(
-          jmean.constant, jkernel.squared_exponential,
-          jdefs.GPParams(model=m), jpack, warp_func=JWARP), _model())
+  want = _value_and_grad_np(jax_ref['packed grad'])
   got = _torch_value_and_grad(
       lambda m: tpacked.multivariate_normal_divergence_packed(
           tmean.constant, tkernel.squared_exponential,
@@ -279,19 +342,15 @@ def test_packed_ekl_matches_jax():
   assert tpacked.subsample_aligned_packed(gen, tpack, 16) is tpack
 
 
-def test_gp_stats_matches_jax():
+def test_gp_stats_matches_jax(jax_ref):
   """GP.stats(): the SVD NLL per task, the full and partial packed EKL
   and the host EUC, against the JAX package's GP.stats()."""
   data = _dataset(3)
-  jmodel = jgp.GP(_jdata(data), jmean.constant, jkernel.squared_exponential,
-                  jdefs.GPParams(model=jax.tree.map(jnp.asarray, _model()),
-                                 config={'objective': 'nll'}), JWARP)
   tmodel = tgp.GP(_tdata(data), tmean.constant, tkernel.squared_exponential,
                   tdefs.GPParams(model=convert.model_from_jax(_model()),
                                  config={'objective': 'nll'}), TWARP,
                   device='cpu')
-  # The JAX package's GP.stats traces: one jitted program.
-  want = jax.jit(lambda: jmodel.stats(verbose=False))()
+  want = jax_ref['stats']
   got = tmodel.stats(verbose=False)
   np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-4)
   np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=3e-3,
@@ -339,15 +398,18 @@ def test_nll_regkl_training_matches_jax():
     np.testing.assert_allclose(tmodel.params.model[k].numpy(),
                                np.asarray(v), atol=1e-4, err_msg=k)
   # The EKL half alone trains too, and an objective the packed trainer
-  # does not serve raises.
-  loss_fn, tdata, subsample_fn = tgp._build_packed_training(
+  # does not serve is left to the host loop, as in the JAX package.
+  loss_fn, tdata, subsample_fn, pure_nll = tgp._build_packed_training(
       tobj.kl, tmodel.dataset, dict(config), tmean.constant,
       tkernel.squared_exponential, TWARP, 'cpu')
+  assert not pure_nll
   assert tdata[0] is None and tdata[1].x.shape == (3, 16, D)
   _, losses = tadam.fit_adam_scan(loss_fn, convert.model_from_jax(_model()),
                                   tdata, subsample_fn, dict(config))
   assert torch.isfinite(losses).all() and losses[-1] < losses[0]
-  with pytest.raises(NotImplementedError, match='host-loop'):
-    tgp._build_packed_training(tobj.euc, tmodel.dataset, dict(config),
-                               tmean.constant, tkernel.squared_exponential,
-                               TWARP, 'cpu')
+  assert tgp._build_packed_training(
+      tobj.euc, tmodel.dataset, dict(config), tmean.constant,
+      tkernel.squared_exponential, TWARP, 'cpu') is None
+  assert jgp._build_packed_training(
+      jobj.euc, jmodel.dataset, dict(config), jmean.constant,
+      jkernel.squared_exponential, JWARP) is None

@@ -9,6 +9,7 @@ are held against the JAX package's models/kernel.py functions, as
 tests/test_pallas_gram.py holds the Pallas kernel, within its atol 2e-5.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -87,8 +88,8 @@ def test_gram_with_ridge_matches_kernel_lib(kind):
     params, (ls, sv, ridge) = _params(4)
     got = fused_gram.gram_with_ridge(torch.from_numpy(x), torch.from_numpy(ls),
                                      sv, ridge, kind)
-    want = KINDS[kind](params, jnp.asarray(x), warp_func=JWARP) + (
-        ridge * jnp.eye(n))
+    want = jax.jit(lambda v: KINDS[kind](params, v, warp_func=JWARP) + (
+        ridge * jnp.eye(n)))(jnp.asarray(x))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 
@@ -98,7 +99,8 @@ def test_cross_gram_matches_kernel_lib():
   for kind, fn in KINDS.items():
     got = fused_gram.cross_gram(torch.from_numpy(x1), torch.from_numpy(x2),
                                 torch.from_numpy(ls), sv, kind)
-    want = fn(params, jnp.asarray(x1), jnp.asarray(x2), warp_func=JWARP)
+    want = jax.jit(lambda a, b: fn(params, a, b, warp_func=JWARP))(
+        jnp.asarray(x1), jnp.asarray(x2))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 

@@ -94,13 +94,14 @@ def test_sqdist_matches_jax():
   rng = np.random.default_rng(1)
   x1 = rng.normal(size=(17, D)).astype(np.float32) + 3.0
   x2 = rng.normal(size=(9, D)).astype(np.float32)
+  want_11, want_12 = jax.jit(lambda a, b: (jgram.sqdist(a),
+                                           jgram.sqdist(a, b)))(x1, x2)
   got = tgram.sqdist(_t(x1))
-  np.testing.assert_allclose(got.numpy(), np.asarray(jgram.sqdist(x1)),
+  np.testing.assert_allclose(got.numpy(), np.asarray(want_11),
                              rtol=1e-5, atol=1e-5)
   assert (torch.diagonal(got) == 0).all()
   np.testing.assert_allclose(tgram.sqdist(_t(x1), _t(x2)).numpy(),
-                             np.asarray(jgram.sqdist(x1, x2)),
-                             rtol=1e-5, atol=1e-5)
+                             np.asarray(want_12), rtol=1e-5, atol=1e-5)
   # Leading batch dimensions: one call per task gives the same.
   batch = np.stack([x1, x1[::-1] * 0.5])
   np.testing.assert_allclose(
@@ -121,9 +122,12 @@ def test_kernels_match_jax(name, mlp):
   jk = getattr(jkernel, name + suffix)
   tk = getattr(tkernel, name + suffix)
   warp = jwarp.DEFAULT_WARP_FUNC
-  for args, kwargs in (((x1,), {}), ((x1, x2), {}), ((x1,), {'diag': True})):
-    want = np.asarray(jax.jit(
-        lambda *a: jk(jp, *a, warp_func=warp, **kwargs))(*args))
+  cases = (((x1,), {}), ((x1, x2), {}), ((x1,), {'diag': True}))
+  # The three JAX calls in one jitted program.
+  wants = jax.jit(lambda: [jk(jp, *map(jnp.asarray, args), warp_func=warp,
+                              **kwargs) for args, kwargs in cases])()
+  for (args, kwargs), want in zip(cases, wants):
+    want = np.asarray(want)
     got = tk(tp, *map(_t, args), warp_func=twarp.DEFAULT_WARP_FUNC,
              **kwargs).numpy()
     assert got.shape == want.shape
@@ -138,7 +142,7 @@ def test_means_match_jax(name):
     model['linear_mean'] = {'kernel': model['linear_mean']['kernel'][:D],
                             'bias': model['linear_mean']['bias']}
   jp, tp = _params(model)
-  want = np.asarray(getattr(jmean, name)(jp, x))
+  want = np.asarray(jax.jit(lambda v: getattr(jmean, name)(jp, v))(x))
   got = getattr(tmean, name)(tp, _t(x)).numpy()
   assert got.shape == want.shape == (8, 1)
   np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
@@ -153,12 +157,16 @@ def test_model_conversion_round_trip():
   for a, b in zip(flat_a, flat_b):
     np.testing.assert_array_equal(np.asarray(a, np.float32), b)
   # The MLP layout is Flax's: a JAX-initialized MLP applies identically.
-  params = jdefs.GPParams(config={'mlp_features': FEATURES})
-  jbasis.init_mlp_with_shape(jax.random.PRNGKey(0), params, (0, D))
   x = np.random.default_rng(4).uniform(size=(5, D)).astype(np.float32)
-  want = jbasis.MLP(FEATURES).apply({'params': params.model['mlp_params']}, x)
-  got = tbasis.mlp_apply(
-      convert.model_from_jax(params.model['mlp_params']), _t(x))
+
+  def init_and_apply(key, v):
+    params = jdefs.GPParams(config={'mlp_features': FEATURES})
+    jbasis.init_mlp_with_shape(key, params, (0, D))
+    mlp = params.model['mlp_params']
+    return mlp, jbasis.MLP(FEATURES).apply({'params': mlp}, v)
+
+  mlp, want = jax.jit(init_and_apply)(jax.random.PRNGKey(0), x)
+  got = tbasis.mlp_apply(convert.model_from_jax(mlp), _t(x))
   np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                              atol=1e-6)
 
@@ -290,12 +298,14 @@ PORT_MODULES = [
     'ops._build', 'models.basis', 'models.kernel', 'models.mean',
     'models.packed', 'models.objectives', 'models.priors',
     'models.divergences', 'models.gp', 'train.adam', 'bo.acfun',
-    'bo.bayesopt', 'bo.const', 'bo.ondevice']
+    'bo.bayesopt', 'bo.const', 'bo.ondevice', 'core.params_io',
+    'train.optimizers', 'train.slice_sampler']
 
 
 def test_port_imports_without_jax():
   code = ('import sys\n'
-          'for name in ("jax", "flax", "optax"):\n'
+          'for name in ("jax", "flax", "optax", "ml_collections", "orbax",\n'
+          '             "hyperbo_tpu"):\n'
           '  sys.modules[name] = None\n'
           'import importlib\n'
           f'for m in {PORT_MODULES!r}:\n'
@@ -383,7 +393,8 @@ def test_acquisition_functions_match_jax(name):
   mu = rng.normal(size=(50, 1)).astype(np.float32)
   std = rng.uniform(0.05, 2.0, size=(50, 1)).astype(np.float32)
   param = 3.0 if name == 'ucb_sub' else 0.7
-  want = np.asarray(getattr(jacfun, name)(mu, std, param))
+  want = np.asarray(jax.jit(lambda m, s: getattr(jacfun, name)(
+      m, s, param))(mu, std))
   got = getattr(tacfun, name)(_t(mu), _t(std), param).numpy()
   np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 

@@ -112,7 +112,7 @@ def trained(initial):
 
   tmodel = _torch_gp(data, init_np)
   tmodel.train()
-  loss_fn, tdata, subsample_fn = tgp._build_packed_training(
+  loss_fn, tdata, subsample_fn, _ = tgp._build_packed_training(
       tmodel.params.config['objective'], tmodel.dataset,
       tmodel.params.config, tmean.linear_mlp,
       tkernel.squared_exponential_mlp, TWARP, 'cpu')
