@@ -162,12 +162,43 @@ exits non-zero and the final ok line is never printed:
      25 of 50 steps into a temporary directory: the hook at 25 and 50, the
      file's state and leaves; loaded on the CPU, its GP.stats() equals the
      trained GP's (rtol 1e-5); 50 steps resumed from it;
-  26. one JSON line with the kernels' numbers (each with its bound from the
+  27. the continuous-oracle BO at PD1 width: run_bayesopt(init_model=True)
+     with an oracle (-sum((x - 0.35)^2) on [0, 1]^4, on the card) and
+     data_loader_name 'uniform' on phase 4's 23 tasks (K1 once a
+     pre-training step), then 20 EI iterations, each over a pool of 1000
+     refined by L-BFGS-B: 20 rows, finite, in the box; a 2-iteration
+     Thompson-sampling run proposes only members of its pools; one
+     refinement from the same start and model on the card and on the CPU
+     reaches EI values within rtol 1e-4; ms/iter, L-BFGS-B evaluations an
+     iteration;
+  28. the on-device continuous runner on phase 4's trained GP (EI, pools
+     of 1024, 20 ascent steps at lr 0.02, 100 iterations, 5 initial
+     points): two calls on equal seeds under
+     torch.cuda.set_sync_debug_mode('error'), bitwise equal; with
+     refine_steps = 0 each pick is a member of its pool with its EI within
+     1e-4 of the pool's maximum (a fresh factor); the best observation
+     beats the initial ones; ms/iter, and a profiled 10-iteration run's
+     device activities an iteration and busy share;
+  29. the matrix-free NLL (ops/iterative) at benchmarks/r9_iterative_probe.py's
+     configuration (SE, constant mean, d = 8, 8 probes, 24 Lanczos steps,
+     preconditioner rank 512): value and gradient at n = 65536 (row_chunk
+     4096) and n = 131072 (clamped to 2048), a first and a second call,
+     with CG's iterations (capped at 200 there) and residual and the peak
+     device memory; at
+     n = 8192 against the float64 dense value and gradient
+     (tests/test_iterative.py's bounds at its 64 probes, three seeds); at
+     n = 4096 the card against the CPU on the same injected probes (rtol
+     1e-4); predict_iterative for 1,000 queries at n = 8192 against
+     GP.predict; GP.train() through config['iterative_mll'] at n = 16384
+     on the host-loop Adam (the JAX package's route), 5 steps, the loss
+     finite and falling;
+  26, last: one JSON line with the kernels' numbers (each with its bound from the
      bytes and operations of its inputs, and the time of one PyTorch call
      computing the same function where there is one; K1 and K5 also with
      their device time, device_ms; K1, K2-K4 and K8 with their launches on
      each path: the re-sampling runner's, multi-start Adam's, the fused
-     L-BFGS's and the Kumar paths' among them), then the ok line.
+     L-BFGS's, the Kumar paths' and phase 27's pre-training among them),
+     then the ok line.
 
 Needs one CUDA card and nvcc; imports nothing of JAX.
 """
@@ -215,6 +246,31 @@ QN_ITERS, FUSED_QN_ITERS = 20, 5
 HOST_ADAM_STEPS, KUMAR_STEPS, KUMAR_N = 20, 20, 8192
 CKPT_EVERY, CKPT_STEPS = 25, 50
 STATS_RTOL = 1e-5
+
+# The continuous BO and the matrix-free NLL (phases 27-29).
+CONT_ITERS, CONT_POOL = 20, 1000
+CONT_LOOP_ITERS, CONT_LOOP_POOL, CONT_REFINE, CONT_LR = 100, 1024, 20, 0.02
+CONT_INIT, CONT_PROFILE_ITERS = 5, 10
+REFINE_RTOL = 1e-4
+# EI of an unrefined pick within 1e-4 (+ 1e-6 absolute) of its pool's
+# maximum recomputed from a fresh factor: two float32 factorizations.
+PICK_GAP, PICK_ATOL = 1e-4, 1e-6
+# benchmarks/r9_iterative_probe.py:49-80: SE, constant mean, d = 8, 8
+# probes, 24 Lanczos steps, preconditioner rank 512.
+IT_DIM, IT_PROBES, IT_STEPS, IT_RANK = 8, 8, 24, 512
+IT_SIZES = ((65536, 4096), (131072, 4096))   # the second clamped to 2048
+IT_CHECK_N, IT_PARITY_N, IT_TRAIN_N, IT_TRAIN_STEPS = 8192, 4096, 16384, 5
+IT_QUERIES = 1000
+# tests/test_iterative.py: value 0.05 (:85), at 64 probes and 30 Lanczos
+# steps a leaf's gradient 0.6 of its scale a draw and 0.25 averaged over
+# three (:91-133), the constant's rtol 1e-3; the posterior's mean atol 2e-3
+# rtol 1e-3, variance atol 2e-3 rtol 2e-2 (:235-297).
+IT_VALUE_REL, IT_LEAF_DRAW, IT_LEAF_MEAN, IT_CONST_RTOL = 0.05, 0.6, 0.25, 1e-3
+IT_CHECK_PROBES, IT_CHECK_STEPS, IT_SEEDS = 64, 30, (3, 5, 7)
+IT_CHUNK = 4096        # row_chunk of the checks and of the training
+# CG's iteration cap at the two large sizes (the JAX default is 1000): a
+# run that needs more fails in minutes instead of running out the clock.
+IT_MAXITER = 200
 
 # The fused large-n path (phases 5-7).
 FUSED_TASKS = ((8192, 'a'), (5000, 'b'))
@@ -2309,6 +2365,437 @@ def phase_checkpoint(dataset, batch_chol, dev, card):
   return launches
 
 
+def cont_oracle(x):
+  """The continuous oracle: a smooth closed form on [0, 1]^4, evaluated on
+  the input's device, best at x = 0.35 (PD1 has no continuous oracle)."""
+  return -torch.sum((x - 0.35) ** 2, dim=-1, keepdim=True)
+
+
+def phase_continuous_host(dataset, batch_chol, dev, card):
+  """Phase 27: run_bayesopt(init_model=True) with the oracle at PD1 width
+  (phase 4's pre-training: 50 Adam steps, K1 once a step), then CONT_ITERS
+  EI iterations, each over a uniform pool of CONT_POOL refined by
+  L-BFGS-B; a 2-iteration Thompson-sampling run proposes only members of
+  its pools; one refinement from the same start and model on the card and
+  on the CPU reaches EI values within REFINE_RTOL. Returns K1's launches
+  and the trained parameters."""
+  from hyperbo_tpu_torch.bo import acfun, bayesopt, input_samplers
+  from hyperbo_tpu_torch.core import convert, defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+
+  params = init_params(STEPS)
+  params.config['checkpoint_every'] = STEPS
+  marks = {}
+
+  def on_step(step, model, loss):
+    torch.cuda.synchronize()
+    marks['trained'] = time.perf_counter()
+
+  evals = []
+  refine = bayesopt._lbfgsb_refine
+
+  def counted(fun, x_init, input_dim):
+    evals.append(0)
+
+    def f(x):
+      evals[-1] += 1
+      return fun(x)
+    return refine(f, x_init, input_dim)
+
+  batch_chol.KERNEL.launches = 0
+  with mock.patch.object(bayesopt, '_lbfgsb_refine', counted):
+    (xo, yo), best, trained = bayesopt.run_bayesopt(
+        dataset, 'test', cont_oracle, mean.linear_mlp,
+        kernel.squared_exponential_mlp, params, acfun.ei, CONT_ITERS,
+        warp_func=DEFAULT_WARP_FUNC,
+        init_random_key=torch.Generator(device=dev).manual_seed(0),
+        init_model=True, data_loader_name='uniform', callback=on_step,
+        device=dev)
+  torch.cuda.synchronize()
+  iter_ms = (time.perf_counter() - marks['trained']) * 1e3 / CONT_ITERS
+  launches = batch_chol.KERNEL.launches
+  xo, yo = xo.cpu(), yo.cpu()
+  if tuple(xo.shape) != (CONT_ITERS, DIM) or tuple(yo.shape) != (
+      CONT_ITERS, 1) or best is not None:
+    raise AssertionError(f'continuous BO gave {tuple(xo.shape)}, '
+                         f'{tuple(yo.shape)}, best {best}')
+  if not (torch.isfinite(xo).all() and torch.isfinite(yo).all() and
+          ((xo >= 0) & (xo <= 1)).all()):
+    raise AssertionError('a continuous observation is not finite or leaves '
+                         '[0, 1]^4')
+  if launches < STEPS or len(evals) != CONT_ITERS:
+    raise AssertionError(f'K1 launched {launches} times, {len(evals)} '
+                         'refinements')
+  log(f'continuous BO at PD1 width (n_init 0 + {CONT_ITERS} rows, EI over '
+      f'{CONT_POOL} uniform inputs + L-BFGS-B): {iter_ms:.3f} ms/iter, '
+      f'{statistics.mean(evals):.1f} L-BFGS-B evaluations/iter '
+      f'(min {min(evals)}, max {max(evals)}), K1 launches {launches} in '
+      f'the pre-training; best y {float(yo.max()):.5f} (optimum 0) [{card}]')
+
+  def gp_at(device):
+    model = gp.GP(dataset, mean.linear_mlp, kernel.squared_exponential_mlp,
+                  defs.GPParams(model=convert.model_to(trained.model, device),
+                                config=dict(trained.config)),
+                  DEFAULT_WARP_FUNC, device=device)
+    model.update_sub_dataset((xo, yo), 'test')
+    return model
+
+  model = gp_at(dev)
+  model.rng = torch.Generator(device=dev).manual_seed(5)
+  pools = []
+
+  def recording(generator, input_dim):
+    pools.append(input_samplers.INPUT_SAMPLERS['uniform'](generator,
+                                                          input_dim))
+    return pools[-1]
+
+  obs = bayesopt.bayesopt(torch.Generator(device=dev).manual_seed(6), model,
+                          'test', cont_oracle, acfun.ts, 2, recording)
+  new = obs.x[CONT_ITERS:]
+  if not (len(pools) == 2 and len(new) == 2 and all(
+      bool((p == x).all(dim=1).any()) for p, x in zip(pools, new))):
+    raise AssertionError('Thompson sampling proposed a point off its pool')
+
+  pool = np.random.default_rng(27).uniform(size=(CONT_POOL, DIM)).astype(
+      np.float32)
+  start, refined = None, {}
+  for device in ('cpu', dev):
+    model = gp_at(device)
+    ei = lambda x, m=model: acfun.ei(model=m, sub_dataset_key='test',
+                                     x_queries=x)
+    cand = torch.from_numpy(pool).to(device)
+    with torch.no_grad():
+      if start is None:
+        start = int(ei(cand).argmax())
+    x_ref = bayesopt._lbfgsb_refine(
+        lambda x, f=ei: -f(x[None, :]).flatten()[0], cand[start], DIM)
+    with torch.no_grad():
+      refined[str(device)] = (x_ref.cpu().numpy(),
+                              float(ei(x_ref[None, :])),
+                              float(ei(cand[start:start + 1])))
+  (x_cpu, ac_cpu, ac0), (x_card, ac_card, _) = (refined['cpu'],
+                                                refined[str(dev)])
+  rel = abs(ac_card - ac_cpu) / abs(ac_cpu)
+  log(f'L-BFGS-B refinement from pool index {start}: EI {ac0:.6e} -> card '
+      f'{ac_card:.6e}, CPU {ac_cpu:.6e} (rel {rel:.3e}); points apart by '
+      f'{np.abs(x_card - x_cpu).max():.3e}')
+  if not rel <= REFINE_RTOL:
+    raise AssertionError(f'card and CPU refinements part: EI rel {rel}')
+  log('Thompson sampling: 2 proposals, each a member of its pool')
+  return launches, trained
+
+
+def phase_continuous_ondevice(trained, dev, card):
+  """Phase 28: the on-device continuous runner on phase 4's trained GP
+  (EI, pools of CONT_LOOP_POOL, CONT_REFINE ascent steps at CONT_LR,
+  CONT_LOOP_ITERS iterations, CONT_INIT initial observations): two calls
+  on equal seeds under set_sync_debug_mode('error'), bitwise equal;
+  refine_steps = 0 picks each pool's EI argmax (recomputed from a fresh
+  factor, within PICK_GAP and PICK_ATOL); the best observation beats the
+  initial ones;
+  ms/iter, and device activities and busy share a profiled iteration."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from hyperbo_tpu_torch.bo import ondevice
+  from hyperbo_tpu_torch.core import convert, defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import kernel, mean
+
+  model = convert.model_to(trained.model, dev)
+  config = dict(trained.config)
+  x0 = torch.from_numpy(np.random.default_rng(28).uniform(
+      size=(CONT_INIT, DIM)).astype(np.float32)).to(dev)
+  y0 = cont_oracle(x0)
+  funcs = (mean.linear_mlp, kernel.squared_exponential_mlp)
+
+  def runner(steps, seed, iters=CONT_LOOP_ITERS):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return lambda: ondevice.continuous_bayesopt_ondevice(
+        *funcs, model, config, DEFAULT_WARP_FUNC, cont_oracle, DIM, iters,
+        acquisition='ei', pool_size=CONT_LOOP_POOL, refine_steps=steps,
+        refine_lr=CONT_LR, num_train_tasks=TASKS, init_obs=(x0, y0),
+        generator=gen, device=dev)
+
+  outs, times = [], []
+  for run in (runner(CONT_REFINE, 0), runner(CONT_REFINE, 0)):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with no_host_sync():
+      outs.append(run())
+    torch.cuda.synchronize()
+    times.append((time.perf_counter() - t0) * 1e3 / CONT_LOOP_ITERS)
+  (xa, ya), (xb, yb) = outs
+  if not (torch.equal(xa, xb) and torch.equal(ya, yb)):
+    raise AssertionError('two continuous runs on equal seeds differ')
+  xa, ya = xa.cpu(), ya.cpu()
+  if tuple(xa.shape) != (CONT_INIT + CONT_LOOP_ITERS, DIM) or not (
+      torch.isfinite(ya).all() and ((xa >= 0) & (xa <= 1)).all()):
+    raise AssertionError(f'continuous runner output {tuple(xa.shape)}')
+  best, start = float(ya[CONT_INIT:].max()), float(ya[:CONT_INIT].max())
+  if not best > start:
+    raise AssertionError(f'best {best} does not beat the initial {start}')
+
+  pools = []
+  draw = ondevice._draw_uniform
+
+  def recording(generator, shape, device):
+    pools.append(draw(generator, shape, device))
+    return pools[-1]
+
+  run = runner(0, 1)
+  with mock.patch.object(ondevice, '_draw_uniform', recording), \
+      no_host_sync():
+    x_buf, y_buf = run()
+  shim = defs.GPParams(model=model, config=config)
+  nv = ondevice._noise(shim, DEFAULT_WARP_FUNC)
+  acq_sub, kind = ondevice._ACQ_SUBS['ei']
+  scale = ondevice._unbiased_scale(TASKS)
+  exact, worst = 0, 0.0
+  with torch.no_grad():
+    for i, pool in enumerate(pools):
+      count = CONT_INIT + i
+      fac = ondevice._masked_refactor(*funcs, config, DEFAULT_WARP_FUNC,
+                                      model, x_buf, count)
+      scores = ondevice._acq_values(
+          *funcs, DEFAULT_WARP_FUNC, acq_sub, kind, shim, nv, scale,
+          (x_buf, y_buf, fac, count), pool).flatten()
+      member = (pool == x_buf[count]).all(dim=1)
+      if not bool(member.any()):
+        raise AssertionError(f'pick {i} with refine_steps = 0 is off its '
+                             'pool')
+      top = float(scores.max())
+      got = float(scores[member].max())
+      exact += int(got == top)
+      worst = max(worst, (top - got - PICK_ATOL) / max(abs(top), 1e-30))
+  if not worst <= PICK_GAP:
+    raise AssertionError(f'a refine_steps = 0 pick is {worst} below its '
+                         "pool's EI maximum")
+
+  torch.cuda.synchronize()
+  run = runner(CONT_REFINE, 2, CONT_PROFILE_ITERS)
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall_us = (time.perf_counter() - t0) * 1e6
+  spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  busy, end = 0, None
+  for a, b in spans:
+    if end is None or a > end:
+      busy, end = busy + b - a, b
+    elif b > end:
+      busy, end = busy + b - end, b
+  log(f'on-device continuous BO ({CONT_LOOP_ITERS} EI iterations, pool '
+      f'{CONT_LOOP_POOL}, {CONT_REFINE} ascent steps): {times[0]:.3f} / '
+      f'{times[1]:.3f} ms/iter (first / second call), both sync-free and '
+      f'bitwise equal; best y {best:.5f} from the initial {start:.5f}; '
+      f'refine_steps = 0: {exact} of {len(pools)} picks its pool\'s EI '
+      f'argmax exactly, the others within {worst:.2e}; profiled '
+      f'{CONT_PROFILE_ITERS} iterations: {len(spans) / CONT_PROFILE_ITERS:.1f} '
+      f'device activities/iter, device busy '
+      f'{100 * busy / wall_us:.1f}% [{card}]')
+  return times[1]
+
+
+def it_data(n, seed):
+  """benchmarks/r9_iterative_probe.py's data: x uniform on [0, 1]^8,
+  y = sin(3 x @ w), w normal; numpy, seeded."""
+  rng = np.random.default_rng(seed)
+  x = rng.uniform(size=(n, IT_DIM)).astype(np.float32)
+  return x, np.sin(3 * x @ rng.normal(size=(IT_DIM, 1))).astype(np.float32)
+
+
+def it_model(dtype=torch.float32, device='cpu'):
+  """The reference probe's parameters (unwarped): constant 0, lengthscale,
+  signal variance 0, noise variance -2."""
+  opts = dict(dtype=dtype, device=device)
+  leaves = {'constant': torch.tensor(0.0, **opts),
+            'lengthscale': torch.zeros((IT_DIM,), **opts),
+            'signal_variance': torch.tensor(0.0, **opts),
+            'noise_variance': torch.tensor(-2.0, **opts)}
+  for v in leaves.values():
+    v.requires_grad_(True)
+  return leaves
+
+
+def it_value_grad(x, y, dtype=torch.float32, iterative=True, **kwargs):
+  """The NLL and its gradient on (x, y) through mll_iterative, or
+  (iterative False) the dense route; with the run's info and ms."""
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import kernel, mean
+  from hyperbo_tpu_torch.models import objectives as obj
+  from hyperbo_tpu_torch.ops import iterative as it
+
+  model = it_model(dtype, x.device)
+  params = defs.GPParams(model=model)
+  if x.is_cuda:
+    torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  info = {}
+  if iterative:
+    val, info = it.mll_iterative(
+        mean.constant, params, x.to(dtype), y.to(dtype),
+        warp_func=DEFAULT_WARP_FUNC, cov_func=kernel.squared_exponential,
+        return_info=True, **kwargs)
+  else:
+    val = obj.neg_log_marginal_likelihood(
+        mean.constant, kernel.squared_exponential, params,
+        {'t': defs.SubDataset(x.to(dtype), y.to(dtype))},
+        warp_func=DEFAULT_WARP_FUNC)
+  grads = torch.autograd.grad(val, list(model.values()))
+  if x.is_cuda:
+    torch.cuda.synchronize()
+  ms = (time.perf_counter() - t0) * 1e3
+  return (float(val.detach()), [g.detach().double().cpu() for g in grads],
+          {k: float(v) for k, v in info.items()}, ms)
+
+
+def phase_iterative(dev, card):
+  """Phase 29: the matrix-free NLL at the reference probe's configuration
+  (IT_PROBES probes, IT_STEPS Lanczos steps, preconditioner rank IT_RANK):
+  value and gradient at n = 65536 (row_chunk 4096) and n = 131072
+  (clamped to 2048), the second call timed, with CG's iterations and
+  residual and the peak device memory; at n = IT_CHECK_N against the
+  float64 dense value and gradient (tests/test_iterative.py's bounds, at
+  its 64 probes and 30 Lanczos steps, three probe seeds); at n =
+  IT_PARITY_N the card against the CPU on the same injected probes (value
+  rtol 1e-4); predict_iterative at n = IT_CHECK_N for IT_QUERIES queries
+  against GP.predict's dense posterior; GP.train() through
+  config['iterative_mll'] at n = IT_TRAIN_N (the host-loop Adam, as the
+  JAX package routes it), the loss finite and falling."""
+  from hyperbo_tpu_torch.core import defs
+  from hyperbo_tpu_torch.core.warp import DEFAULT_WARP_FUNC
+  from hyperbo_tpu_torch.models import gp, kernel, mean
+  from hyperbo_tpu_torch.models import objectives as obj
+  from hyperbo_tpu_torch.ops import iterative as it
+
+  ref = dict(num_probes=IT_PROBES, lanczos_steps=IT_STEPS,
+             precond_rank=IT_RANK)
+  for n, chunk in IT_SIZES:
+    x, y = (torch.from_numpy(a).to(dev) for a in it_data(n, n))
+    runs = []
+    for _ in range(2):
+      torch.cuda.reset_peak_memory_stats()
+      val, grads, info, ms = it_value_grad(x, y, row_chunk=chunk,
+                                           cg_maxiter=IT_MAXITER, **ref)
+      runs.append((val, ms, torch.cuda.max_memory_allocated() / 2**30))
+      if not (np.isfinite(val) and all(bool(torch.isfinite(g).all())
+                                       for g in grads)):
+        raise AssertionError(f'n={n}: value or gradient not finite')
+      if info['cg_iters'] >= IT_MAXITER:
+        raise AssertionError(f'n={n}: CG did not converge: {info}')
+    log(f'matrix-free NLL value+grad n={n} (row_chunk {chunk} -> '
+        f'{it._clamp_row_chunk(chunk, n)}): {runs[1][1]:.1f} ms (first '
+        f'call {runs[0][1]:.1f} ms), value {runs[1][0]:.4f}, cg_iters '
+        f'{info["cg_iters"]:.0f}, cg_residual {info["cg_residual"]:.3e}, '
+        f'peak memory {runs[1][2]:.2f} GiB [{card}]')
+    del x, y
+
+  x, y = (torch.from_numpy(a).to(dev) for a in it_data(IT_CHECK_N, 29))
+  val64, grads64, _, ms64 = it_value_grad(x, y, torch.float64, False)
+  check = dict(num_probes=IT_CHECK_PROBES, lanczos_steps=IT_CHECK_STEPS,
+               precond_rank=IT_RANK, row_chunk=IT_CHUNK)
+  draws = []
+  for seed in IT_SEEDS:
+    val, grads, info, ms = it_value_grad(
+        x, y, key=torch.Generator(device=dev).manual_seed(seed), **check)
+    rel = abs(val - val64) / abs(val64)
+    leaf = [float((g - w).abs().max() / (w.abs().max() + 1e-6))
+            for g, w in zip(grads, grads64)]
+    const = abs(float(grads[0]) - float(grads64[0])) / abs(float(grads64[0]))
+    log(f'n={IT_CHECK_N} estimate (seed {seed}): value rel err {rel:.3e}, '
+        f'constant grad rel {const:.3e}, leaves '
+        f'{" ".join(f"{v:.3f}" for v in leaf)} of scale, cg_iters '
+        f'{info["cg_iters"]:.0f}; {ms:.1f} ms (float64 dense {ms64:.1f} ms)')
+    if not (rel < IT_VALUE_REL and const <= IT_CONST_RTOL and
+            max(leaf) < IT_LEAF_DRAW):
+      raise AssertionError(f'n={IT_CHECK_N} estimate: value {rel}, '
+                           f'constant {const}, leaves {leaf}')
+    draws.append(grads)
+  mean_leaf = [float((torch.stack(gs).mean(0) - w).abs().max() /
+                     (w.abs().max() + 1e-6))
+               for gs, w in zip(zip(*draws), grads64)]
+  if not max(mean_leaf) < IT_LEAF_MEAN:
+    raise AssertionError(f'seed-averaged gradient off: {mean_leaf}')
+
+  rng = np.random.default_rng(290)
+  probes = [np.where(rng.uniform(size=(IT_PARITY_N, IT_PROBES)) < 0.5,
+                     1.0, -1.0).astype(np.float32) for _ in range(2)]
+  xp, yp = it_data(IT_PARITY_N, 291)
+  vals = {}
+  for device in ('cpu', dev):
+    draws_it = iter(probes)
+    with mock.patch.object(it, '_draw_rademacher',
+                           lambda g, shape, d: torch.from_numpy(
+                               next(draws_it)).to(d)), torch.no_grad():
+      vals[str(device)] = float(it.mll_iterative(
+          mean.constant, defs.GPParams(model=it_model(device=device)),
+          torch.from_numpy(xp).to(device), torch.from_numpy(yp).to(device),
+          warp_func=DEFAULT_WARP_FUNC, cov_func=kernel.squared_exponential,
+          key=torch.Generator(), row_chunk=IT_CHUNK, **ref))
+  rel = abs(vals[str(dev)] - vals['cpu']) / abs(vals['cpu'])
+  log(f'n={IT_PARITY_N} on the same probes: card {vals[str(dev)]:.6f}, CPU '
+      f'{vals["cpu"]:.6f}, rel {rel:.3e}')
+  if not rel <= VALUE_RTOL:
+    raise AssertionError(f'card and CPU estimates differ by {rel}')
+
+  xq = torch.from_numpy(np.random.default_rng(292).uniform(
+      size=(IT_QUERIES, IT_DIM)).astype(np.float32)).to(dev)
+  params = defs.GPParams(model={k: v.detach() for k, v in
+                                it_model(device=dev).items()})
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  mu, var, info = it.predict_iterative(
+      mean.constant, params, x, y, xq, warp_func=DEFAULT_WARP_FUNC,
+      cov_func=kernel.squared_exponential, row_chunk=IT_CHUNK,
+      precond_rank=IT_RANK, return_info=True)
+  torch.cuda.synchronize()
+  p_ms = (time.perf_counter() - t0) * 1e3
+  with torch.no_grad():
+    mu_d, var_d = gp.predict(mean.constant, kernel.squared_exponential,
+                             params, x, y, xq, warp_func=DEFAULT_WARP_FUNC)
+  mu_err = float(((mu - mu_d).abs() - 1e-3 * mu_d.abs()).max())
+  var_err = float(((var - var_d).abs() - 2e-2 * var_d.abs()).max())
+  log(f'predict_iterative n={IT_CHECK_N}, {IT_QUERIES} queries: {p_ms:.1f} '
+      f'ms, mean cg_iters {float(info["cg_iters"]):.0f}; against GP.predict: '
+      f'mean max |err| - 1e-3 |mu| {mu_err:.3e}, variance max |err| - 2e-2 '
+      f'|var| {var_err:.3e} (bounds 2e-3) [{card}]')
+  if not (mu_err <= 2e-3 and var_err <= 2e-3):
+    raise AssertionError(f'predict_iterative off: {mu_err}, {var_err}')
+  del x, y
+
+  xt, yt = it_data(IT_TRAIN_N, 293)
+  config = {'method': 'adam', 'learning_rate': 0.05,
+            'max_training_step': IT_TRAIN_STEPS, 'batch_size': IT_TRAIN_N,
+            'objective': obj.nll, 'pack_tasks': False,
+            'iterative_mll': dict(ref, row_chunk=IT_CHUNK)}
+  model = gp.GP({'t': (xt, yt)}, mean.constant, kernel.squared_exponential,
+                defs.GPParams(model={k: v.detach() for k, v in
+                                     it_model().items()}, config=config),
+                DEFAULT_WARP_FUNC, device=dev)
+  losses = []
+  calls = []
+  real = it.mll_iterative
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  with mock.patch.object(it, 'mll_iterative',
+                         lambda *a, **k: calls.append(1) or real(*a, **k)):
+    model.train(torch.Generator(device=dev).manual_seed(0),
+                callback=lambda s, m, loss: losses.append(float(loss)))
+  torch.cuda.synchronize()
+  step_ms = (time.perf_counter() - t0) * 1e3 / IT_TRAIN_STEPS
+  log(f'GP.train through config["iterative_mll"] at n={IT_TRAIN_N} (host '
+      f'loop, pack_tasks False): loss {" ".join(f"{v:.2f}" for v in losses)}; '
+      f'{len(calls)} estimates, {step_ms:.1f} ms/step [{card}]')
+  if not (len(losses) == IT_TRAIN_STEPS and np.isfinite(losses).all() and
+          losses[-1] < losses[0] and len(calls) == IT_TRAIN_STEPS + 1):
+    raise AssertionError(f'iterative training: {losses}, {len(calls)} calls')
+
+
 def _leaves(tree):
   if isinstance(tree, dict):
     return [x for k in sorted(tree) for x in _leaves(tree[k])]
@@ -2379,6 +2866,10 @@ def main():
   kumar_launches, kumar_vg_launches = phase_kumar(dataset, batch_chol, dev,
                                                   card, path_kernels)
   ckpt_launches = phase_checkpoint(dataset, batch_chol, dev, card)
+  cont_launches, _ = phase_continuous_host(dataset, batch_chol,
+                                                      dev, card)
+  phase_continuous_ondevice(trained, dev, card)
+  phase_iterative(dev, card)
 
   # Work of each kernel at the shapes timed above: minimal float32
   # operations, and bytes of its inputs read and outputs written once.
@@ -2438,7 +2929,8 @@ def main():
                            'hyperbo_ss_resample_dispatch': ss_launches,
                            'multistart_adam': ms_launches,
                            'kumar_packed_adam': kumar_launches,
-                           'checkpointed_adam': ckpt_launches},
+                           'checkpointed_adam': ckpt_launches,
+                           'continuous_bayesopt_pretraining': cont_launches},
       'max_abs_err': err,
       'ms': k1_times['kernel'],
       'device_ms': measured(k1_times['device']),

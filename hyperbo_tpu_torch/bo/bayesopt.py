@@ -1,11 +1,11 @@
 """Bayesian-optimization loops (port of hyperbo_tpu/bo/bayesopt.py).
 
-Ported: `simulated_bayesopt` over a finite candidate set, the shared
-sequential loop `_bo_iterations`, `retrain_model`,
-`get_best_datapoint`, and the finite-candidate branch of `run_bayesopt`,
-for a GP or (method 'hyperbo_ss') an HGP sampled by the slice sampler.
-The continuous-oracle `bayesopt` (L-BFGS-B refinement, input samplers)
-and the contextual helpers wait (ROADMAP Queue A).
+`simulated_bayesopt` over a finite candidate set and the continuous-oracle
+`bayesopt` (a pool from an input sampler, its acquisition argmax refined by
+scipy's L-BFGS-B in [0, 1]^d), both on the shared sequential loop
+`_bo_iterations`; `retrain_model`, `get_best_datapoint`, `run_bayesopt`
+(either branch) for a GP or (method 'hyperbo_ss') an HGP sampled by the
+slice sampler, and the contextual helper `with_task_context`.
 
 Randomness comes from one torch.Generator threaded through the loop
 instead of split JAX keys.
@@ -14,11 +14,15 @@ instead of split JAX keys.
 from __future__ import annotations
 
 import logging
+import time
 from typing import Any, Callable, Optional, Tuple, Union
 
+import numpy as np
+import scipy.optimize
 import torch
 
 from hyperbo_tpu_torch.bo import const
+from hyperbo_tpu_torch.bo import input_samplers
 from hyperbo_tpu_torch.core import defs
 from hyperbo_tpu_torch.models import gp
 from hyperbo_tpu_torch.models import objectives as obj
@@ -76,6 +80,14 @@ def _is_random_search(ac_func) -> bool:
   return getattr(ac_func, '__name__', '') in ('rand', 'random_search')
 
 
+def _skips_refinement(ac_func) -> bool:
+  """Acquisitions whose scores are no smooth surrogate to ascend: random
+  search (a refined random baseline is no longer random) and Thompson
+  sampling (a per-point draw is not a coherent function)."""
+  return (_is_random_search(ac_func) or
+          getattr(ac_func, '__name__', '') in ('ts', 'thompson_sampling'))
+
+
 def _bo_iterations(model: gp.GP,
                    sub_dataset_key: Union[int, str],
                    iters: int,
@@ -113,6 +125,75 @@ def _argmax_or_random(model, sub_dataset_key, ac_func, x_queries,
   evals = ac_func(model=model, sub_dataset_key=sub_dataset_key,
                   x_queries=x_queries)
   return evals.argmax()
+
+
+def _lbfgsb_refine(fun, x_init, input_dim):
+  """Bounded L-BFGS-B refinement of an acquisition argmax in [0, 1]^d.
+
+  scipy drives the search in float64; each evaluation takes its point as
+  float32 on x_init's device, computes fun's value and gradient there
+  with autograd, and reads both back in one transfer.
+  """
+  device = x_init.device
+
+  def f_np(x):
+    xt = torch.tensor(x, dtype=torch.float32, device=device,
+                      requires_grad=True)
+    with torch.enable_grad():
+      v = fun(xt)
+      # A posterior constant in x (the prior of a stationary kernel and a
+      # constant mean) has the zero gradient and no graph.
+      g = (torch.autograd.grad(v, xt)[0] if v.requires_grad
+           else torch.zeros_like(xt))
+    vg = torch.cat([v.detach().reshape(1), g]).cpu()
+    return float(vg[0]), vg[1:].numpy().astype(np.float64)
+
+  res = scipy.optimize.minimize(
+      f_np, x_init.detach().cpu().numpy().astype(np.float64), jac=True,
+      method='L-BFGS-B', bounds=[(0., 1.)] * input_dim)
+  return torch.as_tensor(res.x, dtype=torch.float32, device=device)
+
+
+def bayesopt(
+    generator: torch.Generator,
+    model: gp.GP,
+    sub_dataset_key: Union[int, str],
+    query_oracle: Callable[[Any], Any],
+    ac_func: Callable[..., torch.Tensor],
+    iters: int,
+    input_sampler: Callable[..., torch.Tensor],
+) -> SubDataset:
+  """Continuous-domain BO against a query oracle.
+
+  Per iteration: sample a candidate pool (input_sampler(generator, d)),
+  take the acquisition argmax as the start point, refine it with bounded
+  L-BFGS-B in [0, 1]^d, query the oracle at it ((1, d) -> (1, 1)) and
+  append the observation. Random search and Thompson sampling are not
+  refined: their proposal is a member of its pool.
+  """
+  if generator is None:
+    raise ValueError('bayesopt draws its pools from a generator; got None.')
+  input_dim = model.input_dim
+
+  def propose(gen, i):
+    start_time = time.time()
+    x_samples = model._tensor(input_sampler(gen, input_dim))
+    select_idx = _argmax_or_random(model, sub_dataset_key, ac_func,
+                                   x_samples, gen)
+    x_init = x_samples[select_idx]
+
+    def neg_ac(x):
+      return -ac_func(model=model, sub_dataset_key=sub_dataset_key,
+                      x_queries=x[None, :]).flatten()[0]
+
+    x_opt = (x_init if _skips_refinement(ac_func)
+             else _lbfgsb_refine(neg_ac, x_init, input_dim))
+    datapoint = (x_opt, model._tensor(query_oracle(x_opt[None, :])))
+    logging.info('%d-th iter, x_init=%s, eval_datapoint=%s, elapsed=%f',
+                 i, x_init, datapoint, time.time() - start_time)
+    return datapoint
+
+  return _bo_iterations(model, sub_dataset_key, iters, propose, generator)
 
 
 def simulated_bayesopt(
@@ -174,16 +255,20 @@ def run_bayesopt(
 ):
   """BO experiment entry point: build the GP on `device` (the CUDA card
   unless the caller passes 'cpu'), optionally
-  initialize and pre-train it, then run BO over the candidate set.
+  initialize and pre-train it, then run BO over the candidate set (a
+  SubDataset) or against an oracle (a callable, with the input sampler
+  INPUT_SAMPLERS[data_loader_name]; an unknown name raises
+  NotImplementedError).
 
   `init_random_key` is a torch.Generator on `device`; it draws the
-  initial parameters, the training subsamples and any random proposals.
-  Returns ((x_observed, y_observed), best_query, model_params).
+  initial parameters, the training subsamples, the oracle branch's pools
+  and any random proposals. Returns ((x_observed, y_observed),
+  best_query, model_params); best_query is None on the oracle branch.
   """
-  del data_loader_name  # Used by the continuous-oracle branch only.
-  if not isinstance(queried_sub_dataset, SubDataset):
-    raise NotImplementedError('the continuous-oracle bayesopt is not '
-                              'ported yet: see ROADMAP Queue A')
+  continuous = not isinstance(queried_sub_dataset, SubDataset)
+  if continuous and data_loader_name not in input_samplers.INPUT_SAMPLERS:
+    raise NotImplementedError(
+        f'Input sampler for {data_loader_name} not found.')
   logging.info('run_bayesopt is using method %s.', method)
   model = _build_model(method, dataset, mean_func, cov_func, init_params,
                        warp_func, device)
@@ -194,6 +279,17 @@ def run_bayesopt(
     model.train(init_random_key, get_params_path, callback=callback)
   else:
     model.rng = init_random_key
+
+  if continuous:
+    sub_dataset = bayesopt(
+        generator=init_random_key,
+        model=model,
+        sub_dataset_key=sub_dataset_key,
+        query_oracle=queried_sub_dataset,
+        ac_func=ac_func,
+        iters=iters,
+        input_sampler=input_samplers.INPUT_SAMPLERS[data_loader_name])
+    return (sub_dataset.x, sub_dataset.y), None, model.params
 
   sub_dataset = simulated_bayesopt(
       model=model,
@@ -206,3 +302,13 @@ def run_bayesopt(
       callback=callback if save_retrain_model else None)
   return ((sub_dataset.x, sub_dataset.y),
           get_best_datapoint(queried_sub_dataset), model.params)
+
+
+def with_task_context(x, task_id: int, num_tasks: int) -> torch.Tensor:
+  """Each input row with a one-hot task indicator appended, (n, d +
+  num_tasks): the contextual/MTBO baselines model all tasks with one GP
+  whose inputs carry the task's identity."""
+  x = torch.as_tensor(x)
+  ctx = torch.zeros((x.shape[0], num_tasks), dtype=x.dtype, device=x.device)
+  ctx[:, task_id] = 1
+  return torch.cat([x, ctx], dim=1)

@@ -28,9 +28,12 @@ sweeps on the corpus posterior between selections
 (`make_bo_resample_runner`). The HGP runners build every sample's
 posterior and append with torch.func.vmap over the GP runners' pieces, and
 average the acquisition over the samples. `run_bayesopt_ondevice`
-dispatches a built GP or HGP to one of them. The continuous-domain loops
-and the mesh routes wait (ROADMAP Queue A) and raise. Only the default
-factor of HYPERBO_BO_SOLVER, 'winv', is ported.
+dispatches a built GP or HGP to one of them. The continuous-domain runner
+(`make_bo_continuous_runner`, `continuous_bayesopt_ondevice`) draws a
+pool of inputs each iteration and refines its acquisition argmax by
+projected gradient ascent, for an oracle that is a torch function. The
+mesh routes wait (ROADMAP Queue A) and raise. Only the default factor of
+HYPERBO_BO_SOLVER, 'winv', is ported.
 
 The re-sampling runner alone reads the device inside its loop: its slice
 sampler reads one flag a chunk of shrinkage trips (train/slice_sampler).
@@ -38,8 +41,9 @@ Its corpus log prob is evaluated for every chain (and every stepping-out
 edge) in one batched call, so one launch of kernel K1 factors all of their
 corpus tasks.
 
-Randomness ('rand' and 'ts', the HGP's sample index) comes from a
-torch.Generator on the device, through `_draw_index` and `_draw_normal`,
+Randomness ('rand' and 'ts', the HGP's sample index, the continuous
+pools) comes from a torch.Generator on the device, through `_draw_index`,
+`_draw_normal` and `_draw_uniform`,
 and the re-sampling's through train/slice_sampler's draws, the one place
 each draw is made, so that a test can substitute the JAX package's draws.
 """
@@ -92,6 +96,12 @@ def _draw_normal(generator: torch.Generator, shape, device) -> torch.Tensor:
                      device=generator.device).to(device)
 
 
+def _draw_uniform(generator: torch.Generator, shape, device) -> torch.Tensor:
+  """Uniforms on [0, 1) of `shape` (the continuous loop's pool)."""
+  return torch.rand(shape, generator=generator,
+                    device=generator.device).to(device)
+
+
 def _acq_param(kind: str, y_buf, mask, count: int):
   """The acquisition's target or coefficient from the first `count` rows of
   y_buf (0 with no observations, as the host callbacks)."""
@@ -128,11 +138,16 @@ def _ts_index(mu, var_noisy, noise_variance, scale, normal):
   return torch.argmax((mu + torch.sqrt(var_f) * normal).flatten())
 
 
+def _acq_scores(acq_sub, kind, mu, var, y_buf, count: int):
+  """The closed-form acquisition of the posterior (mu, var)."""
+  mask = torch.arange(y_buf.shape[0], device=y_buf.device) < count
+  return acq_sub(mu, torch.sqrt(var), _acq_param(kind, y_buf, mask, count))
+
+
 def _greedy_index(acq_sub, kind, mu, var, y_buf, count: int):
   """argmax of the closed-form acquisition (shared by every loop)."""
-  mask = torch.arange(y_buf.shape[0], device=y_buf.device) < count
-  target = _acq_param(kind, y_buf, mask, count)
-  return torch.argmax(acq_sub(mu, torch.sqrt(var), target).flatten())
+  return torch.argmax(_acq_scores(acq_sub, kind, mu, var, y_buf,
+                                  count).flatten())
 
 
 def _select(acq_sub, kind, generator, cand_x, mu, var, noise_variance,
@@ -627,6 +642,141 @@ def simulated_bayesopt_ondevice_qbatch(
                                  _generator(generator, device))
   total = n_init + iters * q
   return x_out[:total], y_out[:total], select_idx
+
+
+def _acq_values(mean_func, cov_func, warp_func, acq_sub, kind, shim, nv,
+                scale, state, cand_x):
+  """The closed-form acquisition (n_c, 1) at cand_x from the state's
+  posterior; differentiable in cand_x."""
+  x_buf, y_buf, fac_buf, count = state
+  mu, var = _masked_posterior(mean_func, cov_func, shim, warp_func, nv,
+                              scale, x_buf, y_buf, fac_buf, count, cand_x)
+  return _acq_scores(acq_sub, kind, mu, var, y_buf, count)
+
+
+def make_bo_continuous_runner(mean_func, cov_func, config, warp_func,
+                              oracle_fn, input_dim: int, iters: int,
+                              acquisition: str, pool_size: int,
+                              refine_steps: int, refine_lr: float,
+                              num_train_tasks: int, n_init: int,
+                              eps: float = 1e-6):
+  """The continuous-domain runner, run(model, x0, y0, generator) ->
+  (x_buf, y_buf) of n_init + iters rows: the n_init rows of (x0, y0)
+  appended, then per iteration a uniform pool of `pool_size` inputs in
+  [0, 1]^d, its acquisition argmax, `refine_steps` steps of normalized
+  projected gradient ascent on the acquisition (torch.autograd.grad at
+  one point, clamped to [0, 1]) kept only where its score is at least the
+  pool's maximum, the oracle's value, and the rank-1 append. 'rand' takes
+  a uniform member of the pool and 'ts' the argmax of one posterior draw
+  over it, unrefined (a per-point draw is not a coherent function to
+  ascend). Nothing is read back: the refined point's choice is a
+  torch.where and the picks index_select.
+
+  The JAX package's scan appends through its BO step over a one-row
+  candidate set, whose pick is always that row; here the row is appended
+  directly, with no posterior or draw for it.
+  """
+  _bo_solver()
+  n_max = n_init + iters
+  acq_sub, kind = _ACQ_SUBS[acquisition]
+  scale = _unbiased_scale(num_train_tasks)
+
+  def acq_at(shim, nv, state, x):
+    return _acq_values(mean_func, cov_func, warp_func, acq_sub, kind, shim,
+                       nv, scale, state, x)
+
+  def one_iter(shim, nv, state, generator):
+    x_buf, y_buf, fac_buf, count = state
+    pool = _draw_uniform(generator, (pool_size, input_dim), x_buf.device)
+    mu = var = None
+    if kind != 'rand':
+      mu, var = _masked_posterior(mean_func, cov_func, shim, warp_func, nv,
+                                  scale, x_buf, y_buf, fac_buf, count, pool)
+    idx = _select(acq_sub, kind, generator, pool, mu, var, nv, scale, y_buf,
+                  count)
+    x_new = pool.index_select(0, idx.reshape(1))
+    if kind not in ('rand', 'ts') and refine_steps > 0:
+      best = torch.max(_acq_scores(acq_sub, kind, mu, var, y_buf, count))
+      x_ref = x_new
+      with torch.enable_grad():
+        for _ in range(refine_steps):
+          x = x_ref.detach().requires_grad_(True)
+          score = acq_at(shim, nv, state, x).sum()
+          # A posterior constant in x has the zero gradient and no graph.
+          g = (torch.autograd.grad(score, x)[0] if score.requires_grad
+               else torch.zeros_like(x))
+          norm = torch.clamp(torch.linalg.vector_norm(g), min=1e-12)
+          x_ref = torch.clamp(x + refine_lr * g / norm, 0.0, 1.0)
+      x_ref = x_ref.detach()
+      better = acq_at(shim, nv, state, x_ref).flatten()[0] >= best
+      x_new = torch.where(better, x_ref, x_new)
+    y_new = oracle_fn(x_new).reshape(1, 1)
+    return _append(cov_func, shim, warp_func, nv, eps, state, x_new, y_new)
+
+  @torch.no_grad()
+  def run(model, x0, y0, generator):
+    shim = defs.GPParams(model=model, config=config)
+    nv = _noise(shim, warp_func)
+    state = (x0.new_zeros((n_max, input_dim)), x0.new_zeros((n_max, 1)),
+             chol_ops.init_chol_buffer(n_max, device=x0.device), 0)
+    state = _seed(cov_func, config, warp_func, eps, model, state, x0, y0)
+    for _ in range(iters):
+      state = one_iter(shim, nv, state, generator)
+    return state[0], state[1]
+
+  return run
+
+
+def continuous_bayesopt_ondevice(
+    mean_func,
+    cov_func,
+    model_params,
+    config,
+    warp_func,
+    oracle_fn,
+    input_dim: int,
+    iters: int,
+    acquisition: str = 'ei',
+    pool_size: int = 1024,
+    refine_steps: int = 20,
+    refine_lr: float = 0.02,
+    num_train_tasks: int = 0,
+    init_obs: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+    device: Union[str, torch.device] = 'cuda',
+) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Continuous-domain BO on the device, for an oracle that is a torch
+  function: `iters` iterations of make_bo_continuous_runner with no read of
+  the device until the loop ends.
+
+  Args:
+    oracle_fn: (1, d) -> (1, 1) torch function on the device.
+    pool_size: inputs drawn an iteration for the argmax start.
+    refine_steps / refine_lr: projected gradient ascent's schedule; 0
+      steps takes the pool's argmax.
+    init_obs: optional (x0, y0) initial observations.
+    generator: draws the pools and the 'rand' and 'ts' picks (default:
+      seeded 0 on the device).
+    device: where to run when init_obs holds no tensor (the CUDA card
+      unless the caller asks for the CPU).
+
+  Returns:
+    (x_observed, y_observed) including the initial observations, in order.
+  """
+  device = _device_of(None if init_obs is None else init_obs[0], device)
+  if init_obs is None:
+    x0 = torch.zeros((0, input_dim), device=device)
+    y0 = torch.zeros((0, 1), device=device)
+  else:
+    x0 = torch.as_tensor(init_obs[0], dtype=torch.float32, device=device)
+    y0 = torch.as_tensor(init_obs[1], dtype=torch.float32,
+                         device=device).reshape(-1, 1)
+  run = make_bo_continuous_runner(
+      mean_func, cov_func, config, warp_func, oracle_fn, input_dim, iters,
+      acquisition, pool_size, refine_steps, refine_lr, num_train_tasks,
+      x0.shape[0])
+  return run(convert.model_to(model_params, device), x0, y0,
+             _generator(generator, device))
 
 
 def make_bo_retrain_runner(mean_func, cov_func, config, warp_func,

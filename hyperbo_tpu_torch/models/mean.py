@@ -6,10 +6,25 @@ Dense(1) layout ('kernel': (d, 1), 'bias': (1,)) for the linear means.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.models import basis as bf
+
+
+def mean_vector(mean_scalar):
+  """Lift a scalar mean m(params, x, warp_func) of one input row to the
+  vector API f(params, vx, warp_func=None) -> (n, 1), by torch.func.vmap
+  over the rows. For user-defined means; the built-ins below are already
+  matrix-level."""
+
+  @functools.wraps(mean_scalar)
+  def vector_map(params, vx, warp_func=None):
+    return torch.func.vmap(lambda x: mean_scalar(params, x, warp_func))(vx)
+
+  return vector_map
 
 
 def zero(params, vx, warp_func=None):

@@ -12,7 +12,6 @@ and ('nll_regkl', c) train on the packed route (models/packed.py).
 
 As in the JAX package, `nll_regeuc01` and `nll_regeuc10` use the Euclidean
 regularizer their names state (the reference aliases them to the KL one).
-config['iterative_mll'] waits (ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -26,6 +25,7 @@ import torch
 from hyperbo_tpu_torch.core.warp import retrieve_params
 from hyperbo_tpu_torch.models import divergences
 from hyperbo_tpu_torch.ops import fused_mll
+from hyperbo_tpu_torch.ops import iterative
 from hyperbo_tpu_torch.ops import linalg
 
 
@@ -98,17 +98,26 @@ def neg_log_marginal_likelihood(mean_func,
   that is PD but whose covariance is numerically low rank.
   config['fused_mll'] = True sends every sub-dataset the fused route
   serves (se_nll_fused_applicable) through kernels K2-K4, differentiably.
+  Otherwise config['iterative_mll'] (True, or a dict of
+  ops/iterative.mll_iterative's keyword arguments) sends each
+  single-output sub-dataset of a kernel in the fused route's table
+  through the matrix-free estimate: CG and a stochastic Lanczos logdet,
+  O(n) memory, for n beyond the dense routes' reach.
   """
-  if params.config and params.config.get('iterative_mll'):
-    raise NotImplementedError("config['iterative_mll'] is not ported yet: "
-                              'see ROADMAP Queue A')
   fused = fused_mll.fused_requested(params)
+  it_cfg = params.config.get('iterative_mll') if params.config else None
 
   def nll_cholesky(vx, vy):
     if fused and fused_mll.se_nll_fused_applicable(cov_func, vx, params,
                                                    y=vy):
       return fused_mll.se_nll_fused(mean_func, params, vx, vy,
                                     warp_func=warp_func, cov_func=cov_func)
+    if (it_cfg and vy.shape[-1] == 1 and
+        cov_func in fused_mll._fused_kernel_table()):
+      kwargs = dict(it_cfg) if isinstance(it_cfg, dict) else {}
+      return iterative.mll_iterative(mean_func, params, vx, vy,
+                                     warp_func=warp_func, cov_func=cov_func,
+                                     **kwargs)
     chol, kinvy, vy = linalg.solve_gp_linear_system(
         mean_func=mean_func, cov_func=cov_func, params=params, x=vx, y=vy,
         warp_func=warp_func)

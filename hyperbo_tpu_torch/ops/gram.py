@@ -48,6 +48,16 @@ def sqdist(x1: torch.Tensor, x2: Optional[torch.Tensor] = None
   return d2
 
 
+def sqdist_direct(x1: torch.Tensor, x2: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+  """Exact elementwise pairwise squared distances, (..., n1, n2), with
+  O(n1 n2 d) memory: the numerical oracle of the tests."""
+  if x2 is None:
+    x2 = x1
+  diff = x1[..., :, None, :] - x2[..., None, :, :]
+  return torch.sum(diff * diff, dim=-1)
+
+
 def inner_product(x1: torch.Tensor, x2: Optional[torch.Tensor] = None
                   ) -> torch.Tensor:
   """Pairwise inner products x1 @ x2^T, (..., n1, n2)."""

@@ -21,6 +21,7 @@ import torch
 
 from hyperbo_tpu.ops import pallas_batch_chol as pbc
 from hyperbo_tpu_torch.ops import batch_chol as tbc
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _spd_batch(seed, t, n):

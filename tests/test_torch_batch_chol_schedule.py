@@ -10,22 +10,12 @@ operations; the inputs' condition numbers are below 10).
 """
 
 import numpy as np
-import pytest
 import torch
 
 from hyperbo_tpu_torch.ops import batch_chol
+from torch_threads import one_torch_thread  # noqa: F401
 
 SIZES = (1, 31, 32, 33, 64, 65, 100, 127, 128)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-  """One torch thread: the mirror runs many small products, and the test
-  workers must not oversubscribe the cores."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
 
 
 def _spd_batch(seed, t, n):

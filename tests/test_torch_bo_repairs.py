@@ -33,6 +33,7 @@ from hyperbo_tpu_torch.models import gp as tgp
 from hyperbo_tpu_torch.models import kernel as tkernel
 from hyperbo_tpu_torch.models import mean as tmean
 from hyperbo_tpu_torch.models import objectives as tobj
+from torch_threads import one_torch_thread  # noqa: F401
 
 D = 2
 MODEL = {'constant': np.float32(0.1),

@@ -37,6 +37,7 @@ from hyperbo_tpu_torch.ops import fused_mll
 from test_torch_fused_mll import (_assert_close_leaves, _flat,
                                   _jax_value_and_grad, _objective_case,
                                   _torch_value_and_grad)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SV, DA = 1.3, 0.5
 

@@ -18,21 +18,12 @@ import torch
 from hyperbo_tpu_torch.ops import bwd_joint
 from hyperbo_tpu_torch.ops import fused_mll
 from hyperbo_tpu_torch.ops import tri_inv
+from torch_threads import one_torch_thread  # noqa: F401
 
 SV, DA = 1.3, 0.5
 # Tile counts: one tile (no level), 5 (ragged), 8 (64 x 64 products only)
 # and 19 (ragged, with 128 x 128 products at halves of 8 and 16 tiles).
 SIZES = (64, 320, 512, 1216)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-  """The mirror runs many small products: one thread each is fastest, and
-  keeps the test workers from oversubscribing the cores."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
 
 
 def _problem(seed, n, kfam, masked, d=3):

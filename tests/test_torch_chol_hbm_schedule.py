@@ -17,16 +17,7 @@ import torch
 
 from hyperbo_tpu_torch.ops import chol_hbm
 from hyperbo_tpu_torch.ops.chol import poison_non_pd
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-  """The mirror runs thousands of 64 x 64 products: one thread each is
-  fastest, and keeps the test workers from oversubscribing the cores."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _spd(seed, t, n):

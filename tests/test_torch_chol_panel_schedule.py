@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from hyperbo_tpu_torch.ops import chol_panel
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _spd(seed, t, n):

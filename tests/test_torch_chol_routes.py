@@ -25,6 +25,7 @@ from hyperbo_tpu.ops import pallas_chol_hbm
 from hyperbo_tpu_torch.ops import chol as tchol
 from hyperbo_tpu_torch.ops import chol_hbm
 from hyperbo_tpu_torch.ops import chol_panel
+from torch_threads import one_torch_thread  # noqa: F401
 
 SETTERS = ('set_use_hbm_kernel', 'set_use_recursive', 'set_use_pallas_base')
 

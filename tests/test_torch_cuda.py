@@ -37,7 +37,11 @@ evaluation, its chain-batched corpus log prob within rtol 1e-4 of the
 CPU's. Multi-start Adam's stacked systems: one K1 launch over every
 restart's tasks bitwise the per-restart launches, the stacked NLL within
 rtol 1e-6 of each restart alone; the fused route over a Kumar embedding
-within value rtol 1e-4 and gradient max rel 5e-3 of float64.
+within value rtol 1e-4 and gradient max rel 5e-3 of float64. The
+continuous BO runner free of host syncs, its points on the same pools
+the CPU's (bitwise unrefined, within 1e-4 refined); the matrix-free NLL
+on the card within value rtol 1e-4 and each gradient leaf within 1e-3 of
+its largest entry of the CPU's, on the same probes.
 """
 
 import numpy as np
@@ -841,3 +845,93 @@ def test_fused_route_over_kumar_embedding_matches_plain(cuda_device):
   for g, w in zip(grads, grads64):
     err = float((g.double() - w).abs().max() / w.abs().max())
     assert err <= 5e-3, err
+
+
+@pytest.mark.cuda
+def test_continuous_runner_on_the_card(cuda_device, monkeypatch):
+  """The on-device continuous loop reads nothing back inside on the card;
+  on the same pools it picks on the card what it picks on the CPU
+  (bitwise with no refinement, within 1e-4 after 15 ascent steps); two
+  calls on equal generators are equal."""
+  from hyperbo_tpu_torch.bo import ondevice
+  rng = np.random.default_rng(14)
+  pools = rng.uniform(size=(6, 256, 3)).astype(np.float32)
+  x0 = rng.uniform(size=(3, 3)).astype(np.float32)
+  oracle = lambda x: -torch.sum((x - 0.35) ** 2, dim=-1, keepdim=True)
+  model = {'constant': 0., 'lengthscale': np.full(3, -1.0, np.float32),
+           'signal_variance': 0., 'noise_variance': -5.}
+
+  def runner(device, steps, generator):
+    # Everything copied to the device before the run.
+    args = (convert.model_to(model, device), torch.from_numpy(x0).to(device),
+            oracle(torch.from_numpy(x0)).to(device))
+    return lambda: ondevice.continuous_bayesopt_ondevice(
+        mean.constant, kernel.squared_exponential, args[0], {},
+        DEFAULT_WARP_FUNC, oracle, 3, 6, pool_size=256, refine_steps=steps,
+        init_obs=args[1:], generator=generator, device=device)
+
+  for steps in (0, 15):
+    outs = {}
+    for device in ('cpu', cuda_device):
+      it = iter(torch.from_numpy(pools).to(device))
+      monkeypatch.setattr(ondevice, '_draw_uniform',
+                          lambda g, shape, dev: next(it))
+      run = runner(device, steps, torch.Generator(device=device))
+      ctx = _NoHostSync() if device != 'cpu' else torch.no_grad()
+      with ctx:
+        x_obs, _ = run()
+      outs[str(device)] = x_obs.cpu()
+    if steps:
+      np.testing.assert_allclose(outs['cuda:0'].numpy(), outs['cpu'].numpy(),
+                                 atol=1e-4)
+    else:
+      assert torch.equal(outs['cuda:0'], outs['cpu'])
+  monkeypatch.undo()
+  runs = [runner(cuda_device, 15,
+                 torch.Generator(device=cuda_device).manual_seed(1))
+          for _ in range(2)]
+  with _NoHostSync():
+    a, b = runs[0](), runs[1]()
+  assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+  assert bool(((a[0] >= 0) & (a[0] <= 1)).all())
+
+
+@pytest.mark.cuda
+def test_mll_iterative_on_the_card_matches_cpu(cuda_device, monkeypatch):
+  """The matrix-free NLL estimate (1000 rows, padded to 1024 by row_chunk
+  256) on the card against the CPU with the same injected probes: the
+  value within rtol 1e-4, each gradient leaf within 1e-3 of its largest
+  entry, CG's iteration counts at most one apart."""
+  from hyperbo_tpu_torch.ops import iterative
+  rng = np.random.default_rng(15)
+  x = rng.uniform(size=(1000, 4)).astype(np.float32)
+  y = np.sin(3 * x @ rng.normal(size=(4, 1))).astype(np.float32)
+  probes = [np.where(rng.uniform(size=(1024, 8)) < 0.5, 1.0, -1.0).astype(
+      np.float32) for _ in range(2)]
+  model = {'constant': 0.1, 'lengthscale': np.full(4, -0.5, np.float32),
+           'signal_variance': 0.2, 'noise_variance': -2.}
+  results = []
+  for device in ('cpu', cuda_device):
+    it = iter(probes)
+    monkeypatch.setattr(iterative, '_draw_rademacher',
+                        lambda g, shape, dev: torch.from_numpy(next(it)).to(
+                            dev))
+    m = convert.model_to(model, device)
+    for leaf in m.values():
+      leaf.requires_grad_(True)
+    val, info = iterative.mll_iterative(
+        mean.constant, defs.GPParams(model=m), torch.from_numpy(x).to(device),
+        torch.from_numpy(y).to(device), warp_func=DEFAULT_WARP_FUNC,
+        cov_func=kernel.matern52, row_chunk=256, num_probes=8,
+        lanczos_steps=24, key=torch.Generator(), precond_rank=64,
+        return_info=True)
+    grads = torch.autograd.grad(val, list(m.values()))
+    results.append((float(val), int(info['cg_iters']),
+                    [g.cpu().numpy() for g in grads]))
+  (v0, i0, g0), (v1, i1, g1) = results
+  np.testing.assert_allclose(v1, v0, rtol=1e-4)
+  # float32 CG on two devices: the last iteration's residual may cross the
+  # tolerance one iteration apart.
+  assert abs(i1 - i0) <= 1
+  for a, b in zip(g1, g0):
+    assert np.max(np.abs(a - b)) <= 1e-3 * np.max(np.abs(b))

@@ -20,6 +20,7 @@ from hyperbo_tpu.core.warp import DEFAULT_WARP_FUNC as JWARP
 from hyperbo_tpu.models import kernel as jkernel
 from hyperbo_tpu.ops import pallas_gram
 from hyperbo_tpu_torch.ops import fused_gram
+from torch_threads import one_torch_thread  # noqa: F401
 
 KINDS = {
     'se': jkernel.squared_exponential,

@@ -11,16 +11,7 @@ import pytest
 import torch
 
 from hyperbo_tpu_torch.ops import fused_gram
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-  """One torch thread, so that the test workers do not oversubscribe the
-  cores."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _coverage(n1, n2, aligned):

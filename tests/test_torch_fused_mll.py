@@ -50,6 +50,7 @@ from hyperbo_tpu_torch.models import kernel as tkernel
 from hyperbo_tpu_torch.models import mean as tmean
 from hyperbo_tpu_torch.models import objectives as tobj
 from hyperbo_tpu_torch.ops import fused_mll
+from torch_threads import one_torch_thread  # noqa: F401
 
 SV, DA = 1.3, 0.11
 

@@ -14,6 +14,7 @@ from hyperbo_tpu_torch.core import convert
 from hyperbo_tpu_torch.core import defs as tdefs
 from hyperbo_tpu_torch.models import kernel as tkernel
 from hyperbo_tpu_torch.ops import fused_mll
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize('case', ['se', 'se_small', 'matern52_ragged',

@@ -18,18 +18,9 @@ import pytest
 import torch
 
 from hyperbo_tpu_torch.ops import fused_mll
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-10
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-  """The mirror runs many small products: one thread each is fastest, and
-  keeps the test workers from oversubscribing the cores."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
 
 
 def _problem(seed, n, masked, d=3, da=0.11):

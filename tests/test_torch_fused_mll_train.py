@@ -28,6 +28,7 @@ from hyperbo_tpu_torch.ops import fused_mll
 from test_torch_fused_mll import (_assert_close_leaves, _inputs,
                                   _jax_value_and_grad, _objective_case,
                                   _torch_value_and_grad)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_dot_product_stays_on_the_dense_route():

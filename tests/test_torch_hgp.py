@@ -46,6 +46,7 @@ from hyperbo_tpu_torch.models import mean as tmean
 from hyperbo_tpu_torch.models import packed as tpacked
 from hyperbo_tpu_torch.models import priors as tpriors
 from hyperbo_tpu_torch.train import slice_sampler as tslice
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, TASKS, POINTS, CANDIDATES, ITERS = 2, 3, 8, 24, 5
 MAX_SHRINK = 100

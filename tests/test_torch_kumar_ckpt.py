@@ -44,6 +44,7 @@ from hyperbo_tpu_torch.models import objectives as tobj
 from hyperbo_tpu_torch.models import packed as tpacked
 from hyperbo_tpu_torch.ops import fused_mll as tfused
 from hyperbo_tpu_torch.train import adam as tadam
+from torch_threads import one_torch_thread  # noqa: F401
 
 D = 3
 SIZES = (20, 30, 24)

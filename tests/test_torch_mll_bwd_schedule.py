@@ -21,21 +21,12 @@ import torch
 from hyperbo_tpu_torch.ops import fused_mll
 from hyperbo_tpu_torch.ops import mll_bwd
 from hyperbo_tpu_torch.ops import tri_inv
+from torch_threads import one_torch_thread  # noqa: F401
 
 SV, DA = 1.3, 0.5
 # 64-wide tiles: 3 and 5 (odd: a 64-wide last pair tile), 8 (even); then
 # the main path's ragged 5056 and its 8192.
 SIZES = (64, 192, 320, 512, 5056, 8192)
-
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-  """The mirror runs many small products: one thread each is fastest, and
-  keeps the test workers from oversubscribing the cores."""
-  threads = torch.get_num_threads()
-  torch.set_num_threads(1)
-  yield
-  torch.set_num_threads(threads)
 
 
 def _problem(seed, n, kfam, masked, d=3):

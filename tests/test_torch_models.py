@@ -36,6 +36,7 @@ from hyperbo_tpu_torch.models import kernel as tkernel
 from hyperbo_tpu_torch.models import mean as tmean
 from hyperbo_tpu_torch.models import packed as tpacked
 from hyperbo_tpu_torch.ops import gram as tgram
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, FEATURES = 3, (5, 4)
 
@@ -299,7 +300,8 @@ PORT_MODULES = [
     'models.packed', 'models.objectives', 'models.priors',
     'models.divergences', 'models.gp', 'train.adam', 'bo.acfun',
     'bo.bayesopt', 'bo.const', 'bo.ondevice', 'core.params_io',
-    'train.optimizers', 'train.slice_sampler']
+    'train.optimizers', 'train.slice_sampler', 'bo.input_samplers',
+    'ops.iterative']
 
 
 def test_port_imports_without_jax():

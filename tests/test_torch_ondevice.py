@@ -44,6 +44,7 @@ from hyperbo_tpu_torch.models import packed as tpacked
 from hyperbo_tpu_torch.models import priors as tpriors
 from hyperbo_tpu_torch.ops import chol as tchol
 from hyperbo_tpu_torch.ops import linalg as tlinalg
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, CANDIDATES, ITERS, TRAIN_TASKS = 2, 48, 8, 3
 GREEDY = ('ei', 'pi', 'pi2', 'pi3', 'ucb', 'ucb2', 'ucb4')

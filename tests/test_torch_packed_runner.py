@@ -32,6 +32,7 @@ from hyperbo_tpu_torch.models import kernel as tkernel
 from hyperbo_tpu_torch.models import mean as tmean
 from hyperbo_tpu_torch.models import packed as tpacked
 from hyperbo_tpu_torch.train import adam as tadam
+from torch_threads import one_torch_thread  # noqa: F401
 
 D, BATCH, STEPS = 3, 8, 6
 

@@ -40,6 +40,7 @@ from hyperbo_tpu_torch.models import gp as tgp
 from hyperbo_tpu_torch.models import kernel as tkernel
 from hyperbo_tpu_torch.models import mean as tmean
 from hyperbo_tpu_torch.train import adam as tadam
+from torch_threads import one_torch_thread  # noqa: F401
 
 TASKS, DIM, STEPS, BO_ITERS = 4, 2, 10, 5
 

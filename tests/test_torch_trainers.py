@@ -44,6 +44,7 @@ from hyperbo_tpu_torch.models import objectives as tobj
 from hyperbo_tpu_torch.models import packed as tpacked
 from hyperbo_tpu_torch.train import adam as tadam
 from hyperbo_tpu_torch.train import optimizers as topt
+from torch_threads import one_torch_thread  # noqa: F401
 
 D = 2
 SIZES = (20, 28, 24)
